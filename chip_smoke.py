@@ -1,0 +1,367 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure, so the script exits non-zero):
+
+1. device — needs ``torch.cuda.is_available()``; prints the card's name and
+   power limit as ``nvidia-smi`` reports them;
+2. build — compiles every kernel from ``src/repro_torch/kernels/csrc`` with
+   ``nvcc`` (one process per source, all at once);
+3. kernel vs plain version — ``fused_advance_pair`` against
+   ``pair_advance_ref`` on the card, on pairs packed by the port's
+   ``ResidentPair`` from the main-path graph (one full block pair; lanes
+   padded like a real bucket), for order {1,2} x alias {off,on} x record
+   {off,on}, a deduped pair and an activated view; all six outputs must be
+   bitwise equal; CUDA events time the kernel alone (launches queued behind
+   a sleep kernel, so host work is hidden; cross-checked by
+   ``torch.profiler``), the whole wrapper call and the plain version;
+4. whole run — ``BiBlockEngine(advance_impl="cuda")`` against
+   ``advance_impl="torch"`` on the card on a 20k-vertex graph: endpoint
+   counts, corpus, steps and deterministic I/O charges must be identical;
+5. main path — ``python -m repro_torch.launch.walk`` (in-process) with
+   rwnv p=4 q=0.25 on a 1M-vertex, 16M-edge-entry graph in 16 blocks, 1M
+   walks of length 20; checks every walk ended and that each ``_advance``
+   call launched the kernel once.
+
+Then it prints the card line, one ``{"kernels": [...]}`` JSON line and, last,
+``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.json``.
+There is no CPU fallback.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out"
+
+#: H100 SXM HBM3 rate (NVIDIA data sheet), for the bytes bound
+HBM_BYTES_PER_S = 3.35e12
+
+#: the sleep that holds the stream while timed launches queue (about 25 ms)
+SLEEP_CYCLES = 50_000_000
+
+#: the main path's deployment: rwnv p=4 q=0.25 over an Erdos-Renyi graph
+VERTICES, AVG_DEGREE, BLOCKS = 1_000_000, 16, 16
+MAIN_LEN, MAIN_P, MAIN_Q = 20, 4.0, 0.25
+#: the whole-run comparison's graph (phase 4)
+WHOLE_VERTICES, WHOLE_BLOCKS = 20_000, 4
+
+
+def main_argv():
+    return [
+        "--task", "rwnv", "--engine", "biblock", "--vertices", str(VERTICES),
+        "--avg-degree", str(AVG_DEGREE), "--blocks", str(BLOCKS), "--walks-per-vertex", "1",
+        "--length", str(MAIN_LEN), "--p", str(MAIN_P), "--q", str(MAIN_Q),
+    ]  # fmt: skip
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]  # fmt: skip
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean stream time of ``fn()``, host work between calls included."""
+    import torch
+
+    fn()  # warm up
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def queued_ms(launch, reps: int) -> tuple[float, float]:
+    """Mean device time of one ``launch()``: a sleep kernel holds the stream
+    while ``reps`` launches queue behind it, so they run back to back and the
+    host's work per launch is hidden.  Also returns the host seconds the
+    queueing took, which must stay below the sleep for that to hold."""
+    import torch
+
+    launch()  # warm up
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        launch()
+    stop.record()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps, host_s
+
+
+def profiled_ms(launch, reps: int, kernel: str):
+    """Mean device duration of ``kernel`` over ``reps`` launches, as
+    ``torch.profiler`` reads it (None when it sees no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+            return us / ev.count / 1e3 if us > 0 else None
+    return None
+
+
+def max_abs_err(want, got) -> int:
+    return max(int((a.long() - b.long()).abs().max()) for a, b in zip(want, got))
+
+
+def phase_kernels(dev):
+    """Phase 3: the kernel against its plain version at main-path shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import BlockedGraph, BlockView, CSRGraph, erdos_renyi
+    from repro_torch.core import partition_into_n_blocks
+    from repro_torch.engines.base import ResidentPair
+    from repro_torch.engines.step import pair_advance_ref, pow2_pad
+    from repro_torch.kernels import rng
+    from repro_torch.kernels import pair_advance as pa
+
+    fused_advance_pair = pa.fused_advance_pair
+    t0 = time.perf_counter()
+    # the main path's graph, as the launcher builds it
+    g = erdos_renyi(VERTICES, VERTICES * AVG_DEGREE // 2, seed=0)
+    bg = partition_into_n_blocks(g, BLOCKS)
+    w = np.random.default_rng(1).uniform(0.1, 2.0, g.indices.shape).astype(np.float32)
+    bgw = BlockedGraph(CSRGraph(g.indptr, g.indices, w), bg.block_starts, build_alias=True)
+    log(f"[kernels] graph built in {time.perf_counter() - t0:.1f}s: {bg.describe()}")
+
+    # lanes of a block-0 bucket: one walk per vertex, mid-walk hops, prev a
+    # neighbour of cur (first hop: prev == cur), padded to a power of two
+    r = np.random.default_rng(2)
+    s0, e0 = int(bg.block_starts[0]), int(bg.block_starts[1])
+    n = e0 - s0
+    N = pow2_pad(n)
+    cur = np.arange(s0, e0)
+    deg = g.indptr[cur + 1] - g.indptr[cur]
+    k = np.minimum((r.random(n) * deg).astype(np.int64), np.maximum(deg - 1, 0))
+    prev = np.where(deg > 0, g.indices[g.indptr[cur] + k], cur)
+    hop = r.integers(0, MAIN_LEN, n)
+    prev = np.where(hop == 0, cur, prev)
+    lanes = np.zeros((4, N), np.int32)
+    lanes[0, :n], lanes[1, :n], lanes[2, :n], lanes[3, :n] = np.arange(n), prev, cur, hop
+    alive = np.zeros(N, bool)
+    alive[:n] = True
+    lanes_dev = [t for t in torch.as_tensor(lanes, device=dev).unbind(0)]
+    alive_dev = torch.as_tensor(alive, device=dev)
+
+    s1, e1 = int(bg.block_starts[1]), int(bg.block_starts[2])
+    in_b1 = prev[(prev >= s1) & (prev < e1)]
+    act = np.union1d(in_b1[::2], np.arange(s1, e1, 7))  # misses half the block-1 prevs
+
+    def views(graph, case):
+        full = lambda b: BlockView.from_resident(graph.materialize_block(b))
+        if case == "dedup":
+            v = full(0)
+            return v, v
+        if case == "activated":
+            return full(0), graph.partial_view(1, act)
+        return full(0), full(1)
+
+    variants = [("pair", o, a, rec) for o in (2, 1) for a in (False, True) for rec in (False, True)]
+    variants += [("dedup", 2, False, True), ("activated", 2, False, True)]
+    n_iters = int(np.ceil(np.log2(max(bg.max_block_edges, 2)))) + 2
+    key = rng.key_halves(0)
+    rows = []
+    for case, order, has_alias, record in variants:
+        graph = bgw if has_alias else bg
+        pair = ResidentPair(graph, has_alias, device=dev)
+        v0, v1 = views(graph, case)
+        pair.set_slot(0, v0)
+        pair.set_slot(1, v1)
+        args, v_iters = pair.device_args()
+        statics = dict(
+            order=order, k_max=16 if order == 2 else 1, n_iters=n_iters, v_iters=v_iters,
+            record=record, has_alias=has_alias, max_len=MAIN_LEN,
+        )  # fmt: skip
+        call = (*args, *lanes_dev, alive_dev, key, MAIN_LEN, 1.0, MAIN_P, MAIN_Q)
+        want = pair_advance_ref(*call, **statics)
+        got = fused_advance_pair(*call, **statics)
+        torch.cuda.synchronize()
+        for a, b in zip(want, got):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"{case} {statics}: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+        err = max_abs_err(want, got)
+        same = all(torch.equal(a, b) for a, b in zip(want, got))
+        if not same:
+            raise AssertionError(f"kernel != plain version on {case} {statics}: max|err|={err}")
+        # the kernel alone (outputs allocated once, launched outside the
+        # wrapper, so these launches are not counted), cross-checked with the
+        # profiler; then the whole wrapper call, as the engine pays it
+        _, plan = pa._prepare(call[:9], call[9:14], *call[14:], **statics)
+        kernel_ms, host_s = queued_ms(lambda: pa._launch(plan), 20)
+        prof_ms = profiled_ms(lambda: pa._launch(plan), 20, "pair_advance_kernel")
+        call_ms = cuda_ms(lambda: fused_advance_pair(*call, **statics), 20)
+        plain_ms = cuda_ms(lambda: pair_advance_ref(*call, **statics), 2)
+        nbytes = sum(t.numel() * t.element_size() for t in args)
+        nbytes += N * (4 * 4 + 1)  # lanes in: wid, prev, cur, hop (i32) + alive (bool)
+        nbytes += N * (3 * 4 + 1) + 4  # lanes out + steps
+        if record:
+            nbytes += got[5].numel() * 4
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        steps = int(got[4])
+        row = dict(
+            case=case, order=order, has_alias=has_alias, record=record, lanes=N,
+            pair_bytes=sum(t.numel() * t.element_size() for t in args), steps=steps,
+            bitwise_equal=same, max_abs_err=err, kernel_ms=kernel_ms, profiler_ms=prof_ms,
+            call_ms=call_ms, queue_host_s=host_s, plain_ms=plain_ms, bound_ms=bound_ms,
+            bytes=nbytes,
+        )  # fmt: skip
+        rows.append(row)
+        log(f"[kernels] {json.dumps(row)}")
+    return rows
+
+
+def _sig(res):
+    s = res.stats
+    return (
+        res.endpoint_counts.tobytes(), res.corpus.tobytes(), s.steps_sampled, s.block_ios,
+        s.block_bytes, s.ondemand_ios, s.ondemand_bytes, s.walk_bytes_written,
+        s.peak_resident_bytes,
+    )  # fmt: skip
+
+
+def phase_whole_run(dev):
+    """Phase 4: a whole bi-block run, kernel against plain version."""
+    from repro_torch.core import erdos_renyi, partition_into_n_blocks, rwnv_task
+    from repro_torch.engines import BiBlockEngine
+    from repro_torch.kernels.pair_advance import fused_advance_pair
+
+    bg = partition_into_n_blocks(erdos_renyi(WHOLE_VERTICES, WHOLE_VERTICES * 8, seed=5), WHOLE_BLOCKS)
+    task = rwnv_task(p=4.0, q=0.25, walks_per_vertex=1, length=10, seed=5)
+    out = {}
+    for impl in ("cuda", "torch"):
+        before = fused_advance_pair.launches
+        t0 = time.perf_counter()
+        res = BiBlockEngine(bg, task, record_walks=True, advance_impl=impl, device=dev).run()
+        launched = fused_advance_pair.launches - before
+        out[impl] = (res, time.perf_counter() - t0, launched)
+        log(f"[whole] {impl}: {out[impl][1]:.2f}s, steps {res.steps_sampled}, "
+            f"advance calls {res.advance_calls}, kernel launches {launched}")  # fmt: skip
+    (rc, _, lc), (rt, _, lt) = out["cuda"], out["torch"]
+    if _sig(rc) != _sig(rt):
+        raise AssertionError("whole run: cuda and torch signatures differ")
+    if lc != rc.advance_calls or lc == 0 or lt != 0:
+        raise AssertionError(f"whole run: launches {lc}/{lt} vs advance calls {rc.advance_calls}")
+    if rc.endpoint_counts.sum() != rc.num_walks or (rc.corpus[:, 0] < 0).any():
+        raise AssertionError("whole run: walks unaccounted for")
+    return dict(seconds_cuda=out["cuda"][1], seconds_torch=out["torch"][1],
+                steps=rc.steps_sampled, advance_calls=rc.advance_calls)  # fmt: skip
+
+
+def phase_main(extra=()):
+    """Phase 5: the launcher's own path at full size, through the kernel."""
+    import torch
+
+    from repro_torch.launch import walk
+    from repro_torch.kernels.pair_advance import fused_advance_pair
+
+    argv = [*main_argv(), *extra]
+    torch.cuda.synchronize()
+    fused_advance_pair.launches = 0
+    t0 = time.perf_counter()
+    ((_, res),) = walk.main(argv)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    wall = t_end - t0
+    launches = fused_advance_pair.launches
+    s = res.stats
+    # the engine's own time: from its IOStats' creation (engine set-up) to
+    # the end of the run; the rest of the wall is graph generation
+    run_s = t_end - s.wall_start
+    info = dict(
+        argv=" ".join(argv), wall_s=wall, run_s=run_s, exec_s=s.exec_time,
+        exec_share=s.exec_time / run_s, steps=res.steps_sampled,
+        steps_per_s=res.steps_sampled / run_s, num_walks=res.num_walks,
+        advance_calls=res.advance_calls, launches=launches, block_ios=s.block_ios,
+        ondemand_ios=s.ondemand_ios, peak_resident_bytes=s.peak_resident_bytes,
+    )  # fmt: skip
+    log(f"[main] {json.dumps(info)}")
+    if res.endpoint_counts.sum() != res.num_walks:
+        raise AssertionError("main path: endpoint counts do not cover every walk")
+    if launches == 0 or launches != res.advance_calls:
+        raise AssertionError(f"main path: {launches} launches for {res.advance_calls} advances")
+    return info
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script has no CPU fallback", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    card = card_line()
+    log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")  # fmt: skip
+
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    build_s = time.perf_counter() - t0
+    log(f"[build] {len(build.SOURCES)} kernel libraries in {build_s:.1f}s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+    rows = phase_kernels(dev)
+    whole = phase_whole_run(dev)
+    main_info = phase_main()
+    runs = [main_info]
+    if time.perf_counter() - t_start < 420:
+        runs.append(phase_main(["--graph-backend", "disk", "--pool", "disk"]))
+
+    head = next(r for r in rows if (r["case"], r["order"], r["has_alias"], r["record"])
+                == ("pair", 2, False, False))  # fmt: skip
+    kernels = [dict(
+        name="pair_advance", route="cuda", source="src/repro_torch/kernels/csrc/pair_advance.cu",
+        replaces="src/repro/kernels/pair_advance.py:74", launches=main_info["launches"],
+        max_abs_err=max(r["max_abs_err"] for r in rows), ms=head["kernel_ms"],
+        kernel_ms=head["kernel_ms"],
+        plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by="bytes", library_ms=None,
+    )]  # fmt: skip
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke.json").write_text(json.dumps(dict(
+        card=card, build_s=build_s, variants=rows, whole_run=whole, main_runs=runs,
+        total_s=time.perf_counter() - t_start,
+    ), indent=1))  # fmt: skip
+    log(f"[done] {time.perf_counter() - t_start:.1f}s")
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))  # fmt: skip
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

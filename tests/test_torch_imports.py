@@ -1,0 +1,108 @@
+"""The port stands alone and runs on the card unless asked not to.
+
+* Importing every module of ``repro_torch`` (in a fresh interpreter)
+  leaves ``jax`` and every ``repro`` module out of ``sys.modules``, and
+  builds nothing.
+* An engine built with the default device raises a clear error on a host
+  without a CUDA device instead of falling back to the CPU.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")  # the port needs PyTorch; CI legs without it skip
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+mods = ["repro_torch"]
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+    mods.append(m.name)
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro" or m.startswith("repro."))
+print(json.dumps({"modules": mods, "leaked": leaked}))
+"""
+
+
+def test_port_imports_neither_jax_nor_repro(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), REPRO_TORCH_BUILD_DIR=str(tmp_path))
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], capture_output=True, text=True, env=env, check=True
+    ).stdout
+    import json
+
+    res = json.loads(out.strip().splitlines()[-1])
+    assert res["leaked"] == []
+    for m in (
+        "repro_torch.kernels.rng",
+        "repro_torch.kernels.pair_advance",
+        "repro_torch.engines.step",
+        "repro_torch.engines.base",
+        "repro_torch.engines.biblock",
+        "repro_torch.launch.walk",
+        "repro_torch.convert",
+        "repro_torch.core.sampling",
+        "repro_torch.io.blockfile",
+    ):
+        assert m in res["modules"]
+    assert list(tmp_path.iterdir()) == []  # importing builds no kernel
+
+
+def test_port_sources_do_not_name_jax_imports():
+    src = REPO / "src" / "repro_torch"
+    for py in src.rglob("*.py"):
+        for line in py.read_text(encoding="utf-8").splitlines():
+            s = line.strip()
+            assert not s.startswith(("import jax", "from jax", "import repro.", "from repro.")), (
+                f"{py}: {s}"
+            )
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without a CUDA device")
+
+
+def test_default_device_raises_without_gpu(no_cuda):
+    from repro_torch.core import erdos_renyi, partition_into_n_blocks, rwnv_task
+    from repro_torch.engines import BiBlockEngine
+
+    bg = partition_into_n_blocks(erdos_renyi(40, 160, seed=0), 2)
+    task = rwnv_task(walks_per_vertex=1, length=4, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BiBlockEngine(bg, task)
+    # the explicit host path still runs
+    res = BiBlockEngine(bg, task, device="cpu").run()
+    assert res.endpoint_counts.sum() == res.num_walks
+
+
+def test_kernel_wrapper_rejects_other_devices():
+    from repro_torch.kernels.pair_advance import fused_advance_pair
+
+    meta = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_advance_pair(
+            *(meta,) * 8,
+            meta.float(),
+            *(meta,) * 4,
+            meta.bool(),
+            (0, 0),
+            4,
+            1.0,
+            1.0,
+            1.0,
+            order=2,
+            k_max=1,
+            n_iters=4,
+            v_iters=4,
+            record=False,
+            has_alias=False,
+            max_len=4,
+        )

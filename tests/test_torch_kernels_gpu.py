@@ -1,0 +1,162 @@
+"""The hand-written CUDA kernel equals its plain PyTorch version on the card.
+
+Imports only torch and the port (the machine with the card has no jax), and
+skips on a host without a CUDA device.  Run it there with
+
+    python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
+
+Tolerance: bitwise, on all six outputs of the pair advance.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import BlockedGraph, BlockView, CSRGraph, erdos_renyi  # noqa: E402
+from repro_torch.engines import BiBlockEngine  # noqa: E402
+from repro_torch.engines.base import ResidentPair  # noqa: E402
+from repro_torch.engines.step import pair_advance_ref, pow2_pad  # noqa: E402
+from repro_torch.kernels import pair_advance as kernel  # noqa: E402
+from repro_torch.kernels.rng import key_halves  # noqa: E402
+
+LENGTH = 6
+#: vertices cut off from the graph in the dead-end case (blocks 0 and 1)
+DEAD = np.array([5, 300, 777, 1200, 1900])
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _isolate(g, dead):
+    """``g`` without the edges that touch ``dead`` (rows kept, at degree 0)."""
+    n = g.num_vertices
+    src = np.repeat(np.arange(n), np.diff(g.indptr))
+    keep = ~(np.isin(src, dead) | np.isin(g.indices, dead))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(src[keep], minlength=n))])
+    return CSRGraph(indptr.astype(g.indptr.dtype), g.indices[keep])
+
+
+def _graph(weighted, dead=False):
+    g = erdos_renyi(3000, 3000 * 8, seed=4)
+    if dead:
+        g = _isolate(g, DEAD)
+    w = None
+    if weighted:
+        w = np.random.default_rng(4).uniform(0.1, 2.0, g.indices.shape).astype(np.float32)
+    starts = np.array([0, 1000, 2000, 3000])
+    return BlockedGraph(CSRGraph(g.indptr, g.indices, w), starts, build_alias=weighted)
+
+
+def _lanes(bg, dev, n=900, dead=False):
+    r = np.random.default_rng(5)
+    g = bg.graph
+    cur = r.integers(0, 1000, n)
+    k = DEAD.size
+    if dead:  # lanes that stand on a dead end, in either slot
+        cur[:k] = DEAD
+    deg = g.indptr[cur + 1] - g.indptr[cur]
+    kk = np.minimum((r.random(n) * deg).astype(np.int64), np.maximum(deg - 1, 0))
+    prev = np.where(r.random(n) < 0.7, g.indices[g.indptr[cur] + kk], r.integers(0, 3000, n))
+    prev = np.where(deg > 0, prev, cur)
+    hop = r.integers(0, LENGTH, n)
+    if dead:  # and lanes whose prev is one (an empty membership range)
+        prev[k : 2 * k] = DEAD
+        hop[: 2 * k] = 1
+    prev = np.where(hop == 0, cur, prev)
+    N = pow2_pad(n)
+    lanes = np.zeros((4, N), np.int32)
+    lanes[0, :n], lanes[1, :n], lanes[2, :n], lanes[3, :n] = np.arange(n) * 5, prev, cur, hop
+    alive = np.zeros(N, bool)
+    alive[:n] = r.random(n) < 0.9
+    if dead:
+        alive[: 2 * k] = True
+    return [*torch.as_tensor(lanes, device=dev).unbind(0), torch.as_tensor(alive, device=dev)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("record", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", ["pair", "dedup", "activated", "deadend"])
+@pytest.mark.parametrize("order", [1, 2])
+def test_kernel_matches_plain_version(cuda, order, case, weighted, record):
+    dead = case == "deadend"
+    bg = _graph(weighted, dead)
+    pair = ResidentPair(bg, weighted, device=cuda)
+    full = lambda b: BlockView.from_resident(bg.materialize_block(b))
+    v0 = full(0)
+    v1 = {
+        "pair": full(1),
+        "dedup": v0,
+        "activated": bg.partial_view(1, np.arange(1000, 2000, 3)),
+        "deadend": full(1),
+    }
+    pair.set_slot(0, v0)
+    pair.set_slot(1, v1[case])
+    args, v_iters = pair.device_args()
+    statics = dict(
+        order=order,
+        k_max=16 if order == 2 else 1,
+        n_iters=int(np.ceil(np.log2(max(bg.max_block_edges, 2)))) + 2,
+        v_iters=v_iters,
+        record=record,
+        has_alias=weighted,
+        max_len=LENGTH,
+    )
+    lanes = _lanes(bg, cuda, dead=dead)
+    call = (*args, *lanes, key_halves(11), LENGTH, 0.85, 3.0, 0.5)
+    want = pair_advance_ref(*call, **statics)
+    before = kernel.fused_advance_pair.launches
+    got = kernel.fused_advance_pair(*call, **statics)
+    torch.cuda.synchronize()
+    assert kernel.fused_advance_pair.launches == before + 1
+    for a, b in zip(want, got):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    assert int(got[4]) > 0
+    if dead:  # the dead-end lanes died where they stood, writing no trace
+        k = DEAD.size
+        assert not got[3][:k].any()
+        assert torch.equal(got[2][:k], lanes[3][:k])
+        assert torch.equal(got[1][:k].cpu(), torch.as_tensor(DEAD, dtype=torch.int32))
+        if record:
+            assert (got[5][:k] == -1).all()
+
+
+@pytest.mark.gpu
+def test_engine_kernel_matches_plain_version(cuda):
+    from repro_torch.core import partition_into_n_blocks, rwnv_task
+
+    bg = partition_into_n_blocks(erdos_renyi(2000, 16000, seed=2), 3)
+    task = rwnv_task(p=4.0, q=0.25, walks_per_vertex=1, length=8, seed=2)
+    kw = dict(record_walks=True, device=cuda, async_pipeline=False)
+    before = kernel.fused_advance_pair.launches
+    a = BiBlockEngine(bg, task, advance_impl="cuda", **kw).run()
+    assert kernel.fused_advance_pair.launches - before == a.advance_calls > 0
+    b = BiBlockEngine(bg, task, advance_impl="torch", **kw).run()
+    np.testing.assert_array_equal(a.endpoint_counts, b.endpoint_counts)
+    np.testing.assert_array_equal(a.corpus, b.corpus)
+    assert a.steps_sampled == b.steps_sampled
+    assert a.stats.block_ios == b.stats.block_ios
+    assert a.stats.ondemand_ios == b.stats.ondemand_ios
+
+
+@pytest.mark.gpu
+def test_wrapper_rejects_wrong_dtype(cuda):
+    bg = _graph(False)
+    pair = ResidentPair(bg, False, device=cuda)
+    pair.set_slot(0, BlockView.from_resident(bg.materialize_block(0)))
+    pair.set_slot(1, BlockView.from_resident(bg.materialize_block(1)))
+    args, v_iters = pair.device_args()
+    lanes = _lanes(bg, cuda)
+    lanes[1] = lanes[1].long()
+    with pytest.raises(TypeError, match="prev"):
+        kernel.fused_advance_pair(
+            *args, *lanes, key_halves(0), LENGTH, 1.0, 1.0, 1.0,
+            order=2, k_max=1, n_iters=4, v_iters=v_iters, record=False,
+            has_alias=False, max_len=LENGTH,
+        )  # fmt: skip

@@ -1,0 +1,235 @@
+"""The port's pair advance equals the JAX package's, bit for bit.
+
+One graph, built and blocked by ``repro`` and carried into the port with
+``repro_torch.convert``, is packed by both packages' ``ResidentPair``; the
+same seeded lanes then go through
+
+* ``repro.engines.step.advance_pair`` (the jitted JAX advance),
+* ``repro.kernels.pair_advance.fused_advance_pair(interpret=True)``
+  (the Pallas kernel in interpret mode),
+* ``repro_torch.engines.step.pair_advance_ref`` (the plain PyTorch version),
+* ``repro_torch.kernels.pair_advance.fused_advance_pair`` on CPU tensors
+  (the wrapper's CPU path),
+
+and all six outputs must agree exactly.  Cases cover order 1/2, alias
+tables on/off (a weighted graph), trace recording on/off, a deduped pair
+and an activated view that an order-2 ``prev`` misses (the clamped
+fallback).  Order-2 cases run ``k_max = 4`` rounds, so the last-round
+accept is common; one case runs the engines' 16 (without the Pallas
+interpreter, whose compile grows with the unrolled rounds).  The kernel
+itself is held against the plain version on the card by
+``tests/test_torch_kernels_gpu.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")  # the port needs PyTorch; CI legs without it skip
+
+from repro.core import BlockedGraph as JBlockedGraph  # noqa: E402
+from repro.core import CSRGraph as JCSRGraph  # noqa: E402
+from repro.core import erdos_renyi  # noqa: E402
+from repro.core.graph import BlockView as JBlockView  # noqa: E402
+from repro.engines.base import ResidentPair as JResidentPair  # noqa: E402
+from repro.engines.step import advance_pair as jax_advance  # noqa: E402
+from repro.kernels.pair_advance import fused_advance_pair as pallas_advance  # noqa: E402
+from repro_torch.convert import blocked_graph_from_arrays  # noqa: E402
+from repro_torch.core.graph import BlockView as TBlockView  # noqa: E402
+from repro_torch.engines.base import ResidentPair as TResidentPair  # noqa: E402
+from repro_torch.engines.step import pair_advance_ref, pow2_pad  # noqa: E402
+from repro_torch.kernels import pair_advance as tkernel  # noqa: E402
+from repro_torch.kernels.rng import key_halves  # noqa: E402
+
+torch.set_num_threads(1)
+
+SEED = 7
+LENGTH = 6
+P, Q = 3.0, 0.5
+#: vertices cut off from the graph in the dead-end cases (blocks 0 and 1)
+DEAD = np.array([3, 17, 29, 45, 61, 70])
+
+
+def _isolate(g, dead):
+    """``g`` without the edges that touch ``dead``: those vertices keep
+    their rows, at degree 0."""
+    n = g.num_vertices
+    src = np.repeat(np.arange(n), np.diff(g.indptr))
+    keep = ~(np.isin(src, dead) | np.isin(g.indices, dead))
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(src[keep], minlength=n))])
+    return JCSRGraph(indptr.astype(g.indptr.dtype), g.indices[keep])
+
+
+def _graphs(weighted: bool, dead: bool = False):
+    g = erdos_renyi(120, 720, seed=SEED)
+    if dead:
+        g = _isolate(g, DEAD)
+    w = None
+    if weighted:
+        w = np.random.default_rng(SEED).uniform(0.1, 2.0, g.indices.shape).astype(np.float32)
+        g = JCSRGraph(g.indptr, g.indices, w)
+    starts = np.array([0, 40, 80, 120])
+    jbg = JBlockedGraph(g, starts, build_alias=weighted)
+    tbg = blocked_graph_from_arrays(g.indptr, g.indices, w, starts)
+    if weighted:
+        tbg.ensure_alias()
+    return jbg, tbg
+
+
+def _views(bg, view_cls, case):
+    full = lambda b: view_cls.from_resident(bg.materialize_block(b))
+    if case == "dedup":
+        v = full(0)
+        return v, v
+    if case == "activated":
+        # every 3rd vertex of block 1: lanes whose prev is in block 1 mostly
+        # miss the pair, and block-2 prevs miss it entirely
+        return full(0), bg.partial_view(1, np.arange(40, 80, 3))
+    return full(0), full(1)
+
+
+def _lanes(bg_j, n=200, dead=False):
+    r = np.random.default_rng(SEED + n)
+    g = bg_j.graph
+    cur = r.integers(0, 40, n)  # block 0: resident in slot 0
+    if dead:  # lanes that stand on a dead end, in either slot
+        cur[: DEAD.size] = DEAD
+    prev = np.empty(n, np.int64)
+    for i, v in enumerate(cur):
+        nbrs = g.indices[g.indptr[v] : g.indptr[v + 1]]
+        # a neighbour (second-order context), or any vertex (a miss)
+        prev[i] = r.choice(nbrs) if (nbrs.size and r.random() < 0.7) else r.integers(0, 120)
+    if dead:  # and lanes whose prev is one (an empty membership range)
+        prev[DEAD.size : 2 * DEAD.size] = DEAD
+    hop = r.integers(0, LENGTH, n)
+    if dead:
+        hop[: 2 * DEAD.size] = np.arange(2 * DEAD.size) % 2 + 1
+    prev[hop == 0] = cur[hop == 0]
+    alive = r.random(n) < 0.9
+    if dead:
+        alive[: 2 * DEAD.size] = True
+    N = pow2_pad(n)
+    pad = lambda x, fill=0: np.concatenate([x, np.full(N - n, fill, x.dtype)])
+    return (
+        pad(np.arange(n, dtype=np.int32) * 3 + 1),
+        pad(prev.astype(np.int32)),
+        pad(cur.astype(np.int32)),
+        pad(hop.astype(np.int32)),
+        pad(alive, False),
+    )
+
+
+def _run_all(order, weighted, record, case, decay, k_max=4, pallas=True, dead=False):
+    jbg, tbg = _graphs(weighted, dead)
+    jpair = JResidentPair(jbg, weighted)
+    tpair = TResidentPair(tbg, weighted, device="cpu")
+    for pair, bg, view_cls in ((jpair, jbg, JBlockView), (tpair, tbg, TBlockView)):
+        v0, v1 = _views(bg, view_cls, case)
+        pair.set_slot(0, v0)
+        pair.set_slot(1, v1)
+    jargs, jv = jpair.device_args()
+    targs, tv = tpair.device_args()
+    assert jv == tv
+    for a, b in zip(jargs, targs):  # the two packings agree
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    lanes = _lanes(jbg, dead=dead)
+    k_max = k_max if order == 2 else 1
+    n_iters = int(np.ceil(np.log2(max(jbg.max_block_edges, 2)))) + 2
+    statics = dict(
+        order=order,
+        k_max=k_max,
+        n_iters=n_iters,
+        v_iters=jv,
+        record=record,
+        has_alias=weighted,
+        max_len=LENGTH,
+    )
+    import jax
+
+    jkey = jax.random.PRNGKey(SEED)
+    jscal = (jnp.int32(LENGTH), jnp.float32(decay), jnp.float32(P), jnp.float32(Q))
+    jl = [jnp.asarray(x) for x in lanes]
+    outs = {"jax": jax_advance(*jargs, *jl, jkey, *jscal, **statics)}
+    if pallas:
+        outs["pallas"] = pallas_advance(*jargs, *jl, jkey, *jscal, interpret=True, **statics)
+    tl = [torch.from_numpy(x) for x in lanes]
+    tscal = (key_halves(SEED), LENGTH, decay, P, Q)
+    outs["ref"] = pair_advance_ref(*targs, *tl, *tscal, **statics)
+    before = tkernel.fused_advance_pair.launches
+    outs["wrapper"] = tkernel.fused_advance_pair(*targs, *tl, *tscal, **statics)
+    assert tkernel.fused_advance_pair.launches == before  # CPU: no kernel launch
+    return outs, lanes
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _assert_same(outs):
+    names = ("prev", "cur", "hop", "alive", "steps", "trace")
+    ref = [_np(x) for x in outs["jax"]]
+    for impl, out in outs.items():
+        for name, a, b in zip(names, ref, out):
+            b = _np(b)
+            assert a.shape == b.shape, (impl, name, a.shape, b.shape)
+            np.testing.assert_array_equal(
+                a.astype(np.int64), b.astype(np.int64), err_msg=f"{impl}:{name}"
+            )
+
+
+@pytest.mark.parametrize("record", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("order", [1, 2])
+def test_advance_matches_jax_and_pallas(order, weighted, record):
+    # the Pallas interpreter joins where the trace is recorded (its slowest
+    # compiles are order 2's); the JAX advance holds every case
+    outs, lanes = _run_all(order, weighted, record, "pair", decay=0.85, pallas=record)
+    assert ("pallas" in outs) == record
+    _assert_same(outs)
+    hop_in = lanes[3]
+    assert int(_np(outs["ref"][4])) == int((_np(outs["ref"][2]) - hop_in).sum())
+    assert int(_np(outs["ref"][4])) > 0  # the walks did move
+
+
+def test_advance_engine_rounds_matches_jax():
+    """The engines' k_max = 16 rejection rounds, alias tables and trace."""
+    outs, _ = _run_all(2, True, True, "pair", decay=1.0, k_max=16, pallas=False)
+    _assert_same(outs)
+
+
+@pytest.mark.parametrize("case", ["dedup", "activated"])
+@pytest.mark.parametrize("order", [1, 2])
+def test_advance_dedup_and_activated(order, case):
+    # the Pallas interpreter joins all but the order-2 deduped pair
+    pallas = order == 1 or case == "activated"
+    outs, _ = _run_all(order, False, True, case, decay=1.0, pallas=pallas)
+    assert ("pallas" in outs) == pallas
+    _assert_same(outs)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("order", [1, 2])
+def test_advance_dead_ends(order, weighted):
+    """Lanes on a zero-degree vertex die where they stand: hop not advanced,
+    nothing written to the trace."""
+    pallas = order == 1 and not weighted  # the Pallas interpreter joins one case
+    outs, lanes = _run_all(order, weighted, True, "pair", decay=1.0, pallas=pallas, dead=True)
+    _assert_same(outs)
+    prev_o, cur_o, hop_o, alive_o, _, trace = (_np(x) for x in outs["ref"])
+    k = DEAD.size
+    assert not alive_o[:k].any()
+    np.testing.assert_array_equal(hop_o[:k], lanes[3][:k])
+    np.testing.assert_array_equal(cur_o[:k], DEAD)
+    assert (trace[:k] == -1).all()
+    # the lanes with a dead-end prev did move on
+    assert (hop_o[k : 2 * k] > lanes[3][k : 2 * k]).all()
+
+
+def test_activated_view_exercises_prev_miss():
+    """The activated case really has order-2 lanes whose prev misses the
+    pair (the clamped not-found fallback of locate)."""
+    jbg, _ = _graphs(False)
+    view = jbg.partial_view(1, np.arange(40, 80, 3))
+    _, prev, _, hop, alive = _lanes(jbg)
+    in_pair = (prev < 40) | np.isin(prev, view.vids)
+    assert (alive & (hop > 0) & ~in_pair).sum() > 10
