@@ -9,24 +9,36 @@ Phases (each raises on failure, so the script exits non-zero):
    power limit as ``nvidia-smi`` reports them;
 2. build — compiles every kernel from ``src/repro_torch/kernels/csrc`` with
    ``nvcc`` (one process per source, all at once);
-3. kernel vs plain version — ``fused_advance_pair`` against
+3. pair advance vs plain version — ``fused_advance_pair`` against
    ``pair_advance_ref`` on the card, on pairs packed by the port's
    ``ResidentPair`` from the main-path graph (one full block pair; lanes
    padded like a real bucket), for order {1,2} x alias {off,on} x record
-   {off,on}, a deduped pair and an activated view; all six outputs must be
-   bitwise equal; CUDA events time the kernel alone (launches queued behind
-   a sleep kernel, so host work is hidden; cross-checked by
-   ``torch.profiler``), the whole wrapper call and the plain version;
-4. whole run — ``BiBlockEngine(advance_impl="cuda")`` against
-   ``advance_impl="torch"`` on the card on a 20k-vertex graph: endpoint
-   counts, corpus, steps and deterministic I/O charges must be identical;
-5. main path — ``python -m repro_torch.launch.walk`` (in-process) with
+   {off,on}, a deduped pair, an activated view and a single hop
+   (``max_hops=1``); all six outputs must be bitwise equal; CUDA events
+   time the kernel alone (launches queued behind a sleep kernel, so host
+   work is hidden; cross-checked by ``torch.profiler``), the whole wrapper
+   call and the plain version;
+3b. bucket histogram vs plain version — ``bucket_hist_kernel`` against
+   ``bucket_hist_ref``, bitwise, over 1,048,576 walks with 16, 4096 and
+   65536 buckets (the last takes the global-atomic path), about 5% of ids
+   out of range and 70% valid; timed like phase 3, beside
+   ``torch.bincount`` as the library yardstick;
+3c. kernel tier — ``node2vec_step`` through the kernel against the dense
+   oracle (``use_kernel=False``), bitwise, on a pair of the phase-4 graph,
+   for (p, q) in {(1, 1), (4, 0.25)}, plus an alias case and ``alias_step``;
+4. whole runs — ``BiBlockEngine``, then PB, SOGW, SGSC and
+   ``InMemoryWalker``, each with ``advance_impl="cuda"`` against ``"torch"``
+   on a 20k-vertex graph: endpoint counts, corpus, steps and deterministic
+   I/O charges must be identical, and every engine must equal the oracle;
+5. main paths — ``python -m repro_torch.launch.walk`` (in-process) with
    rwnv p=4 q=0.25 on a 1M-vertex, 16M-edge-entry graph in 16 blocks, 1M
-   walks of length 20; checks every walk ended and that each ``_advance``
-   call launched the kernel once.
+   walks of length 20: ``--engine biblock --engine oracle`` (biblock's
+   endpoint counts must equal the oracle's, bitwise), then ``sogw``, then
+   ``pb`` and ``sgsc`` (each held to that oracle), then the disk backends
+   while under 420 s; each run sets the launch
+   counts to 0 before and reads them after, and must launch the kernel once
+   per advance.
 
-Then it prints the card line, one ``{"kernels": [...]}`` JSON line and, last,
-``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.json``.
 There is no CPU fallback.
 """
 
@@ -52,14 +64,20 @@ VERTICES, AVG_DEGREE, BLOCKS = 1_000_000, 16, 16
 MAIN_LEN, MAIN_P, MAIN_Q = 20, 4.0, 0.25
 #: the whole-run comparison's graph (phase 4)
 WHOLE_VERTICES, WHOLE_BLOCKS = 20_000, 4
+#: the bucket histogram's shapes (phase 3b): the main path's 1M walks,
+#: padded to the tile, over its 16 blocks and two larger bucket counts
+HIST_N, HIST_NBS = 1_048_576, (16, 4096, 65536)
 
 
-def main_argv():
-    return [
-        "--task", "rwnv", "--engine", "biblock", "--vertices", str(VERTICES),
+def main_argv(engines=("biblock",)):
+    argv = [
+        "--task", "rwnv", "--vertices", str(VERTICES),
         "--avg-degree", str(AVG_DEGREE), "--blocks", str(BLOCKS), "--walks-per-vertex", "1",
         "--length", str(MAIN_LEN), "--p", str(MAIN_P), "--q", str(MAIN_Q),
     ]  # fmt: skip
+    for e in engines:
+        argv += ["--engine", e]
+    return argv
 
 
 def log(*a):
@@ -185,6 +203,7 @@ def phase_kernels(dev):
 
     variants = [("pair", o, a, rec) for o in (2, 1) for a in (False, True) for rec in (False, True)]
     variants += [("dedup", 2, False, True), ("activated", 2, False, True)]
+    variants += [("single", 2, False, False)]  # one hop (max_hops=1), as ops.node2vec_step
     n_iters = int(np.ceil(np.log2(max(bg.max_block_edges, 2)))) + 2
     key = rng.key_halves(0)
     rows = []
@@ -198,6 +217,7 @@ def phase_kernels(dev):
         statics = dict(
             order=order, k_max=16 if order == 2 else 1, n_iters=n_iters, v_iters=v_iters,
             record=record, has_alias=has_alias, max_len=MAIN_LEN,
+            max_hops=1 if case == "single" else None,
         )  # fmt: skip
         call = (*args, *lanes_dev, alive_dev, key, MAIN_LEN, 1.0, MAIN_P, MAIN_Q)
         want = pair_advance_ref(*call, **statics)
@@ -246,13 +266,27 @@ def _sig(res):
     )  # fmt: skip
 
 
+def _whole_graph(weighted=False):
+    import numpy as np
+
+    from repro_torch.core import BlockedGraph, CSRGraph, erdos_renyi, partition_into_n_blocks
+
+    g = erdos_renyi(WHOLE_VERTICES, WHOLE_VERTICES * 8, seed=5)
+    bg = partition_into_n_blocks(g, WHOLE_BLOCKS)
+    if not weighted:
+        return bg
+    g = bg.graph
+    w = np.random.default_rng(5).uniform(0.1, 2.0, g.indices.shape).astype(np.float32)
+    return BlockedGraph(CSRGraph(g.indptr, g.indices, w), bg.block_starts, build_alias=True)
+
+
 def phase_whole_run(dev):
     """Phase 4: a whole bi-block run, kernel against plain version."""
-    from repro_torch.core import erdos_renyi, partition_into_n_blocks, rwnv_task
+    from repro_torch.core import rwnv_task
     from repro_torch.engines import BiBlockEngine
     from repro_torch.kernels.pair_advance import fused_advance_pair
 
-    bg = partition_into_n_blocks(erdos_renyi(WHOLE_VERTICES, WHOLE_VERTICES * 8, seed=5), WHOLE_BLOCKS)
+    bg = _whole_graph()
     task = rwnv_task(p=4.0, q=0.25, walks_per_vertex=1, length=10, seed=5)
     out = {}
     for impl in ("cuda", "torch"):
@@ -274,39 +308,210 @@ def phase_whole_run(dev):
                 steps=rc.steps_sampled, advance_calls=rc.advance_calls)  # fmt: skip
 
 
-def phase_main(extra=()):
-    """Phase 5: the launcher's own path at full size, through the kernel."""
+def phase_hist(dev):
+    """Phase 3b: the bucket histogram against its plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import bucket_hist as bh
+
+    r = np.random.default_rng(3)
+    rows = []
+    for nb in HIST_NBS:
+        ids = r.integers(0, nb, HIST_N).astype(np.int32)
+        out = r.random(HIST_N) < 0.05  # out of range on both sides
+        ids[out] = np.where(r.random(out.sum()) < 0.5, -1 - r.integers(0, nb, out.sum()),
+                            nb + r.integers(0, nb, out.sum()))  # fmt: skip
+        valid = r.random(HIST_N) < 0.7
+        ids_d = torch.as_tensor(ids, device=dev)
+        valid_d = torch.as_tensor(valid, device=dev)
+        want = bh.bucket_hist_ref(ids_d, valid_d, num_buckets=nb)
+        got = bh.bucket_hist_kernel(ids_d, valid_d, num_buckets=nb)
+        torch.cuda.synchronize()
+        err = int((want.long() - got.long()).abs().max())
+        if not torch.equal(want, got):
+            raise AssertionError(f"bucket_hist != plain version at NB={nb}: max|err|={err}")
+        in_range = (ids >= 0) & (ids < nb)
+        if int(got.sum()) != int((valid & in_range).sum()):
+            raise AssertionError(f"bucket_hist at NB={nb} does not count the valid in-range ids")
+        shared = nb <= bh.SHARED_BINS_MAX
+        scratch = torch.zeros(nb, dtype=torch.int32, device=dev)
+        launch = lambda: bh._launch(ids_d, valid_d, scratch, shared=shared)
+        kernel_ms, host_s = queued_ms(launch, 20)
+        name = "bucket_hist_shared" if shared else "bucket_hist_global"
+        prof_ms = profiled_ms(launch, 20, name)
+        call_ms = cuda_ms(lambda: bh.bucket_hist_kernel(ids_d, valid_d, num_buckets=nb), 20)
+        plain_ms = cuda_ms(lambda: bh.bucket_hist_ref(ids_d, valid_d, num_buckets=nb), 2)
+        # the library yardstick: one bincount over ids drawn in range, the
+        # valid flags as float weights (it does no range filter, no int cast)
+        lib_ids = torch.as_tensor(r.integers(0, nb, HIST_N), device=dev)
+        lib_w = valid_d.float()
+        library_ms = cuda_ms(lambda: torch.bincount(lib_ids, weights=lib_w, minlength=nb), 20)
+        nbytes = HIST_N * 4 + HIST_N * 1 + nb * 4
+        row = dict(
+            num_buckets=nb, path="shared" if shared else "global", walks=HIST_N,
+            counted=int(got.sum()), bitwise_equal=True, max_abs_err=err, kernel_ms=kernel_ms,
+            profiler_ms=prof_ms, call_ms=call_ms, queue_host_s=host_s, plain_ms=plain_ms,
+            library_ms=library_ms, bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        )  # fmt: skip
+        rows.append(row)
+        log(f"[hist] {json.dumps(row)}")
+    return rows
+
+
+def phase_tier(dev):
+    """Phase 3c: the single-hop kernel tier against the dense oracle."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import BlockView
+    from repro_torch.engines.base import ResidentPair
+    from repro_torch.engines.step import pow2_pad
+    from repro_torch.kernels import alias_step, node2vec_step, rng
+
+    rows = []
+    n = 2000
+    for weighted, cases in ((False, [(1.0, 1.0), (4.0, 0.25)]), (True, [(0.5, 2.0)])):
+        bg = _whole_graph(weighted)
+        g = bg.graph
+        pair = ResidentPair(bg, weighted, device=dev)
+        pair.set_slot(0, BlockView.from_resident(bg.materialize_block(0)))
+        # slot 1: an activated view over part of block 2, so some prevs miss
+        s2, e2 = int(bg.block_starts[2]), int(bg.block_starts[3])
+        pair.set_slot(1, bg.partial_view(2, np.arange(s2, e2, 2)))
+        args, v_iters = pair.device_args()
+        r = np.random.default_rng(7)
+        cur = r.integers(0, int(bg.block_starts[1]), n)
+        deg = g.indptr[cur + 1] - g.indptr[cur]
+        k = np.minimum((r.random(n) * deg).astype(np.int64), np.maximum(deg - 1, 0))
+        prev = np.where(r.random(n) < 0.6, g.indices[g.indptr[cur] + k], r.integers(s2, e2, n))
+        hop = r.integers(0, MAIN_LEN, n)
+        N = pow2_pad(n)
+        lanes = np.zeros((4, N), np.int32)
+        lanes[0, :n], lanes[1, :n], lanes[2, :n], lanes[3, :n] = np.arange(n), prev, cur, hop
+        alive = np.zeros(N, bool)
+        alive[:n] = r.random(n) < 0.9
+        wid, prv, cu, hp = torch.as_tensor(lanes, device=dev).unbind(0)
+        act = torch.as_tensor(alive, device=dev)
+        key = rng.key_halves(13)
+        for p, q in cases:
+            kw = dict(p=p, q=q, k_max=4, n_iters=20, v_iters=v_iters, has_alias=weighted)
+            zk, mk = node2vec_step(*args, wid, prv, cu, hp, act, key, **kw)
+            zr, mr = node2vec_step(*args, wid, prv, cu, hp, act, key, use_kernel=False, **kw)
+            torch.cuda.synchronize()
+            same = torch.equal(zk, zr) and torch.equal(mk, mr)
+            err = max_abs_err((zr, mr), (zk, mk))
+            if not same or int(mk.sum()) == 0:
+                raise AssertionError(f"node2vec_step kernel != oracle at {kw}: max|err|={err}")
+            rows.append(dict(step="node2vec_step", p=p, q=q, has_alias=weighted, lanes=N,
+                             moved=int(mk.sum()), bitwise_equal=same, max_abs_err=err))  # fmt: skip
+        if weighted:
+            ak = alias_step(*args, wid, cu, act, key, v_iters=v_iters)
+            ar = alias_step(*args, wid, cu, act, key, v_iters=v_iters, use_kernel=False)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(ak, ar))
+            if not same:
+                raise AssertionError("alias_step kernel != dense oracle")
+            rows.append(dict(step="alias_step", has_alias=True, lanes=N, moved=int(ak[1].sum()),
+                             bitwise_equal=same, max_abs_err=max_abs_err(ar, ak)))  # fmt: skip
+    for row in rows:
+        log(f"[tier] {json.dumps(row)}")
+    return rows
+
+
+def phase_other_engines(dev):
+    """Phase 4b: whole PB, SOGW, SGSC and oracle runs, kernel against plain
+    version, and every engine against the oracle."""
+    from repro_torch.core import rwnv_task
+    from repro_torch.engines import InMemoryWalker, PlainBucketEngine, SOGWEngine
+    from repro_torch.kernels.pair_advance import fused_advance_pair
+
+    bg = _whole_graph()
+    task = rwnv_task(p=4.0, q=0.25, walks_per_vertex=1, length=10, seed=5)
+    makers = {
+        "oracle": lambda kw: InMemoryWalker(bg, task, **kw),
+        "pb": lambda kw: PlainBucketEngine(bg, task, record_walks=True, **kw),
+        "sogw": lambda kw: SOGWEngine(bg, task, record_walks=True, **kw),
+        "sgsc": lambda kw: SOGWEngine(bg, task, static_cache=True, record_walks=True, **kw),
+    }
+    out, oracle = {}, None
+    for name, make in makers.items():
+        runs = {}
+        for impl in ("cuda", "torch"):
+            before = fused_advance_pair.launches
+            t0 = time.perf_counter()
+            res = make(dict(advance_impl=impl, device=dev)).run()
+            runs[impl] = (res, time.perf_counter() - t0, fused_advance_pair.launches - before)
+        (rc, sc, lc), (rt, st, lt) = runs["cuda"], runs["torch"]
+        log(f"[engines] {name}: cuda {sc:.2f}s / torch {st:.2f}s, steps {rc.steps_sampled}, "
+            f"advance calls {rc.advance_calls}, kernel launches {lc}, vertex_ios "
+            f"{rc.stats.vertex_ios}")  # fmt: skip
+        if _sig(rc) != _sig(rt) or rc.stats.vertex_ios != rt.stats.vertex_ios:
+            raise AssertionError(f"{name}: cuda and torch signatures differ")
+        if lc != rc.advance_calls or lc == 0 or lt != 0:
+            raise AssertionError(f"{name}: launches {lc}/{lt} vs advance calls {rc.advance_calls}")
+        oracle = rc if name == "oracle" else oracle
+        same_counts = (rc.endpoint_counts == oracle.endpoint_counts).all()
+        if not same_counts or (rc.corpus != oracle.corpus).any():
+            raise AssertionError(f"{name}: walks differ from the oracle's")
+        out[name] = dict(seconds_cuda=sc, seconds_torch=st, steps=rc.steps_sampled,
+                         advance_calls=rc.advance_calls, launches=lc,
+                         vertex_ios=rc.stats.vertex_ios, block_ios=rc.stats.block_ios)  # fmt: skip
+    return out
+
+
+def phase_main(engines, extra=(), oracle_counts=None):
+    """Phase 5: the launcher's own path, through the kernel.  Runs
+    ``engines`` in one launcher call; returns ``(info per engine, the
+    oracle's endpoint counts)``.  Every engine's endpoint counts must equal
+    the oracle's (from this call, or ``oracle_counts`` at the same size)."""
     import torch
 
     from repro_torch.launch import walk
+    from repro_torch.kernels.bucket_hist import bucket_hist_kernel
     from repro_torch.kernels.pair_advance import fused_advance_pair
 
-    argv = [*main_argv(), *extra]
+    argv = [*main_argv(engines), *extra]
     torch.cuda.synchronize()
     fused_advance_pair.launches = 0
+    bucket_hist_kernel.launches = 0
     t0 = time.perf_counter()
-    ((_, res),) = walk.main(argv)
+    results = walk.main(argv)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    wall = t_end - t0
     launches = fused_advance_pair.launches
-    s = res.stats
-    # the engine's own time: from its IOStats' creation (engine set-up) to
-    # the end of the run; the rest of the wall is graph generation
-    run_s = t_end - s.wall_start
-    info = dict(
-        argv=" ".join(argv), wall_s=wall, run_s=run_s, exec_s=s.exec_time,
-        exec_share=s.exec_time / run_s, steps=res.steps_sampled,
-        steps_per_s=res.steps_sampled / run_s, num_walks=res.num_walks,
-        advance_calls=res.advance_calls, launches=launches, block_ios=s.block_ios,
-        ondemand_ios=s.ondemand_ios, peak_resident_bytes=s.peak_resident_bytes,
-    )  # fmt: skip
-    log(f"[main] {json.dumps(info)}")
-    if res.endpoint_counts.sum() != res.num_walks:
-        raise AssertionError("main path: endpoint counts do not cover every walk")
-    if launches == 0 or launches != res.advance_calls:
-        raise AssertionError(f"main path: {launches} launches for {res.advance_calls} advances")
-    return info
+    hist_launches = bucket_hist_kernel.launches
+    infos = []
+    # each engine's own time: from its IOStats' creation (engine set-up) to
+    # the next engine's, or the end; the rest of the wall is graph generation
+    starts = [res.stats.wall_start for _, res in results] + [t_end]
+    for (name, res), t_a, t_b in zip(results, starts, starts[1:]):
+        s = res.stats
+        run_s = t_b - t_a
+        infos.append(dict(
+            engine=name, argv=" ".join(argv), run_s=run_s, exec_s=s.exec_time,
+            exec_share=s.exec_time / run_s, steps=res.steps_sampled,
+            steps_per_s=res.steps_sampled / run_s, num_walks=res.num_walks,
+            advance_calls=res.advance_calls, block_ios=s.block_ios, vertex_ios=s.vertex_ios,
+            ondemand_ios=s.ondemand_ios, peak_resident_bytes=s.peak_resident_bytes,
+        ))  # fmt: skip
+    calls = sum(res.advance_calls for _, res in results)
+    for info in infos:
+        info.update(wall_s=t_end - t0, launches=launches, bucket_hist_launches=hist_launches)
+        log(f"[main] {json.dumps(info)}")
+    for name, res in results:
+        if res.endpoint_counts.sum() != res.num_walks:
+            raise AssertionError(f"{name}: endpoint counts do not cover every walk")
+    if launches == 0 or launches != calls:
+        raise AssertionError(f"main path {engines}: {launches} launches for {calls} advances")
+    by_name = dict(results)
+    if "oracle" in by_name:
+        oracle_counts = by_name["oracle"].endpoint_counts
+    if oracle_counts is not None:
+        for name, res in results:
+            if not (res.endpoint_counts == oracle_counts).all():
+                raise AssertionError(f"{name}: endpoint counts differ from the oracle's")
+    return infos, oracle_counts
 
 
 def main() -> int:
@@ -319,6 +524,7 @@ def main() -> int:
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
+    elapsed = lambda: time.perf_counter() - t_start
     dev = torch.device("cuda")
     card = card_line()
     log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
@@ -334,27 +540,47 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     rows = phase_kernels(dev)
+    hist = phase_hist(dev)
+    tier = phase_tier(dev)
     whole = phase_whole_run(dev)
-    main_info = phase_main()
-    runs = [main_info]
-    if time.perf_counter() - t_start < 420:
-        runs.append(phase_main(["--graph-backend", "disk", "--pool", "disk"]))
+    engines = phase_other_engines(dev)
+    phases = {}
+    # the launcher's main path, held to the oracle, then its other default
+    # engine, then PB and SGSC, all at full size and held to that oracle
+    main_infos, oracle_counts = phase_main(["biblock", "oracle"])
+    phases["biblock+oracle"] = main_infos
+    phases["sogw"], _ = phase_main(["sogw"], oracle_counts=oracle_counts)
+    phases["pb+sgsc"], _ = phase_main(["pb", "sgsc"], oracle_counts=oracle_counts)
+    if elapsed() < 420:
+        phases["biblock disk"], _ = phase_main(
+            ["biblock"], extra=["--graph-backend", "disk", "--pool", "disk"]
+        )
 
     head = next(r for r in rows if (r["case"], r["order"], r["has_alias"], r["record"])
                 == ("pair", 2, False, False))  # fmt: skip
+    hist16 = next(r for r in hist if r["num_buckets"] == 16)
     kernels = [dict(
         name="pair_advance", route="cuda", source="src/repro_torch/kernels/csrc/pair_advance.cu",
-        replaces="src/repro/kernels/pair_advance.py:74", launches=main_info["launches"],
+        replaces="src/repro/kernels/pair_advance.py:74", launches=main_infos[0]["launches"],
         max_abs_err=max(r["max_abs_err"] for r in rows), ms=head["kernel_ms"],
         kernel_ms=head["kernel_ms"],
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by="bytes", library_ms=None,
+    ), dict(
+        name="bucket_hist", route="cuda", source="src/repro_torch/kernels/csrc/bucket_hist.cu",
+        replaces="src/repro/kernels/bucket_hist.py:26",
+        launches=main_infos[0]["bucket_hist_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in hist), ms=hist16["kernel_ms"],
+        kernel_ms=hist16["kernel_ms"], plain_ms=hist16["plain_ms"], bound_ms=hist16["bound_ms"],
+        bound_by="bytes", library_ms=hist16["library_ms"],
+        library_call="torch.bincount(ids drawn in range, weights=valid.float(), minlength=NB): "
+        "no range filter, no int cast",
     )]  # fmt: skip
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, build_s=build_s, variants=rows, whole_run=whole, main_runs=runs,
-        total_s=time.perf_counter() - t_start,
+        card=card, build_s=build_s, variants=rows, bucket_hist=hist, kernel_tier=tier,
+        whole_run=whole, other_engines=engines, main_runs=phases, total_s=elapsed(),
     ), indent=1))  # fmt: skip
-    log(f"[done] {time.perf_counter() - t_start:.1f}s")
+    log(f"[done] {elapsed():.1f}s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

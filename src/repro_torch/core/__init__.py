@@ -49,6 +49,9 @@ from .walk import WALK_BYTES, WalkBatch, pack_walks, unpack_walks
 _LAZY = {
     "BiBlockEngine": "repro_torch.engines",
     "EngineBase": "repro_torch.engines",
+    "InMemoryWalker": "repro_torch.engines",
+    "PlainBucketEngine": "repro_torch.engines",
+    "SOGWEngine": "repro_torch.engines",
     "WalkResult": "repro_torch.engines",
     "ResidentPair": "repro_torch.engines",
     "BlockStore": "repro_torch.io",

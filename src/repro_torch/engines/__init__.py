@@ -1,9 +1,17 @@
-"""Walk engines (PyTorch port): the bi-block engine on the shared
-:class:`EngineBase` plumbing, and the pair advance it runs on the device.
+"""Walk engines (PyTorch port) on the shared :class:`EngineBase` plumbing,
+and the pair advance they run on the device.
+
+* :class:`BiBlockEngine` — the paper's system (GraSorw).
+* :class:`PlainBucketEngine` / :class:`SOGWEngine` — the §7 baselines
+  (``SOGWEngine(static_cache=True)`` is SGSC).
+* :class:`InMemoryWalker` — whole-graph fast path: the oracle for
+  correctness tests and the corpus generator.
 """
 
 from .base import EngineBase, ResidentPair, WalkResult, resolve_device
+from .baselines import PlainBucketEngine, SOGWEngine
 from .biblock import BiBlockEngine
+from .inmemory import InMemoryWalker
 from .pipeline import BucketCursor, BucketPipeline
 from .step import pair_advance_ref, pow2_pad
 
@@ -12,7 +20,10 @@ __all__ = [
     "BucketCursor",
     "BucketPipeline",
     "EngineBase",
+    "InMemoryWalker",
+    "PlainBucketEngine",
     "ResidentPair",
+    "SOGWEngine",
     "WalkResult",
     "pair_advance_ref",
     "pow2_pad",

@@ -124,9 +124,12 @@ def pair_advance_ref(
     record: bool,
     has_alias: bool,
     max_len: int,
+    max_hops: int | None = None,
 ):
     """Advance every walk until it leaves the resident view pair or
-    terminates.  Returns ``(prev, cur, hop, alive, steps, trace)``, where
+    terminates, for at most ``max_hops`` hops (``None`` means
+    ``max_len + 1``, the full sweep; 1 is the single-hop form).  Returns
+    ``(prev, cur, hop, alive, steps, trace)``, where
     ``trace[n, h]`` is the vertex walk n reached at hop h during this call
     (-1 = no move); ``trace`` is ``[N, max_len+1]``, or ``[1, 1]`` when not
     recording.
@@ -183,8 +186,9 @@ def pair_advance_ref(
 
     slot, row, found = locate(cur)
     resident = alive & found
+    hops = max_len + 1 if max_hops is None else max_hops
     it = 0
-    while it <= max_len and bool(resident.any()):
+    while it < hops and bool(resident.any()):
         kw0, kw1 = rng.fold_in(kwid[0], kwid[1], hop)
 
         movable = resident  # alive & cur has a row in the pair

@@ -22,7 +22,10 @@ __all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "build_dir", "library_path", "l
 _HERE = Path(__file__).resolve().parent
 
 #: kernel library name -> CUDA source (relative to this package)
-SOURCES = {"pair_advance": "csrc/pair_advance.cu"}
+SOURCES = {
+    "pair_advance": "csrc/pair_advance.cu",
+    "bucket_hist": "csrc/bucket_hist.cu",
+}
 
 #: Hopper only; no --use_fast_math (the walks are held bit for bit)
 NVCC_FLAGS = (

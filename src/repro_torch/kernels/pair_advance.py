@@ -61,7 +61,7 @@ def _check(name, t, dtype, device):
 
 
 def _prepare(args, lanes, key, length, decay, p, q, *, order, k_max, n_iters, v_iters, record,
-             has_alias, max_len):  # fmt: skip
+             has_alias, max_len, max_hops=None):  # fmt: skip
     """Check CUDA inputs, allocate the outputs, and return them with the
     kernel's ctypes argument list (for :func:`_launch`)."""
     vids, nverts, vid_base, indptr, ptr_base, indices, ind_base, alias_j, alias_q = args
@@ -81,6 +81,7 @@ def _prepare(args, lanes, key, length, decay, p, q, *, order, k_max, n_iters, v_
         raise ValueError(f"order must be 1 or 2, got {order}")
     if k_max < 1:
         raise ValueError(f"k_max must be >= 1, got {k_max}")
+    hops = max_len + 1 if max_hops is None else int(max_hops)
     n = prev.shape[0]
     if any(t.shape != (n,) for t in lanes):
         raise ValueError("wid/prev/cur/hop/alive must all be [N]")
@@ -110,7 +111,7 @@ def _prepare(args, lanes, key, length, decay, p, q, *, order, k_max, n_iters, v_
         *(t.data_ptr() for t in (prev_out, cur_out, hop_out, alive_out, trace, steps)),
         n, k0, k1, int(length), float(decay), acc_ret, acc_nbr, acc_away,
         order, k_max, n_iters, v_iters, int(bool(record)), int(bool(has_alias)), max_len,
-        max_len + 1, stream,
+        hops, stream,
     )  # fmt: skip
     return (prev_out, cur_out, hop_out, alive_out, steps[0], trace), (dev, cargs)
 
@@ -153,10 +154,13 @@ def fused_advance_pair(
     record: bool,
     has_alias: bool,
     max_len: int,
+    max_hops: int | None = None,
 ):
     """Advance every walk until it leaves the resident view pair or
-    terminates; the argument list and return contract of
-    :func:`~repro_torch.engines.step.pair_advance_ref`."""
+    terminates, for at most ``max_hops`` hops (``None``: ``max_len + 1``,
+    the full sweep; 1 gives the single-hop form of
+    :mod:`repro_torch.kernels.ops`); the argument list and return contract
+    of :func:`~repro_torch.engines.step.pair_advance_ref`."""
     kw = dict(
         order=order,
         k_max=k_max,
@@ -165,6 +169,7 @@ def fused_advance_pair(
         record=record,
         has_alias=has_alias,
         max_len=max_len,
+        max_hops=max_hops,
     )
     args = (vids, nverts, vid_base, indptr, ptr_base, indices, ind_base, alias_j, alias_q)
     lanes = (wid, prev, cur, hop, alive)

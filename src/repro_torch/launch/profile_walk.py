@@ -10,9 +10,11 @@ Runs the launcher's path (:func:`repro_torch.launch.walk.main`) twice:
 2. under :mod:`cProfile`: the host functions with the most cumulative and
    own time.
 
-The engine's time runs from its ``IOStats`` creation to the end of the run,
-so graph generation is outside it.  Needs a CUDA device unless the walk
-flags say ``--device cpu`` (then the device half is empty).
+The engines' time runs from the first engine's ``IOStats`` creation to the
+end of the run, so graph generation is outside it; ``exec_s`` and
+``steps`` sum over the engines the walk flags select (``--engine``, by
+default the launcher's biblock and sogw).  Needs a CUDA device unless the
+walk flags say ``--device cpu`` (then the device half is empty).
 """
 
 from __future__ import annotations
@@ -31,18 +33,22 @@ def _timed_main(walk_argv):
     from repro_torch.launch import walk
 
     t0 = time.perf_counter()
-    ((_, res),) = walk.main(walk_argv)
+    results = [res for _, res in walk.main(walk_argv)]
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     t_end = time.perf_counter()
-    return res, t_end - t0, t_end - res.stats.wall_start
+    return results, t_end - t0, t_end - results[0].stats.wall_start
+
+
+def _exec_s(results) -> float:
+    return sum(res.stats.exec_time for res in results)
 
 
 def device_profile(walk_argv) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        res, wall, run_s = _timed_main(walk_argv)
+        results, wall, run_s = _timed_main(walk_argv)
     rows = []
     busy_us = 0.0
     for ev in prof.key_averages():
@@ -57,8 +63,8 @@ def device_profile(walk_argv) -> dict:
     return dict(
         wall_s=wall,
         run_s=run_s,
-        exec_s=res.stats.exec_time,
-        steps=res.steps_sampled,
+        exec_s=_exec_s(results),
+        steps=sum(res.steps_sampled for res in results),
         device_busy_s=busy_us / 1e6,
         device_idle_share=1.0 - busy_us / 1e6 / run_s,
         by_name=rows,
@@ -68,10 +74,10 @@ def device_profile(walk_argv) -> dict:
 def host_profile(walk_argv, top: int) -> dict:
     prof = cProfile.Profile()
     prof.enable()
-    res, wall, run_s = _timed_main(walk_argv)
+    results, wall, run_s = _timed_main(walk_argv)
     prof.disable()
     stats = pstats.Stats(prof)
-    out = {"wall_s": wall, "run_s": run_s, "exec_s": res.stats.exec_time}
+    out = {"wall_s": wall, "run_s": run_s, "exec_s": _exec_s(results)}
     for key in ("cumulative", "tottime"):
         buf = io.StringIO()
         pstats.Stats(prof, stream=buf).sort_stats(key).print_stats(top)

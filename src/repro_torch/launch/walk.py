@@ -1,14 +1,16 @@
 """Walk-engine launcher of the PyTorch port: run a GraSorw task.
 
     PYTHONPATH=src python -m repro_torch.launch.walk --task rwnv --vertices 5000 \\
-        [--p 4 --q 0.25] [--graph-backend disk --graph-dir /path/to/dir] \\
-        [--pool disk] [--no-async-pipeline] [--pool-shards 4] \\
+        --engine biblock [--engine sogw|sgsc|pb|oracle] [--p 4 --q 0.25] \\
+        [--graph-backend disk --graph-dir /path/to/dir] [--pool disk] \\
+        [--no-async-pipeline] [--pool-shards 4] \\
         [--advance cuda|torch] [--device cuda|cpu]
 
-The flags and CSV columns of ``python -m repro.launch.walk``, with the
-advance chosen by ``--advance`` (the hand-written CUDA kernel or its plain
-PyTorch version) and the device by ``--device`` (``cuda`` by default).
-Only the bi-block engine is ported so far.
+The flags, engines and CSV columns of ``python -m repro.launch.walk`` (by
+default the ``biblock`` and ``sogw`` engines), with the advance chosen by
+``--advance`` (the hand-written CUDA kernel or its plain PyTorch version)
+and the device by ``--device`` (``cuda`` by default); both reach every
+engine.
 """
 
 from __future__ import annotations
@@ -26,7 +28,12 @@ CSV_HEADER = (
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", choices=("rwnv", "prnv", "deepwalk"), default="rwnv")
-    ap.add_argument("--engine", action="append", default=None, choices=("biblock",))
+    ap.add_argument(
+        "--engine",
+        action="append",
+        default=None,
+        choices=("biblock", "pb", "sogw", "sgsc", "oracle"),
+    )
     ap.add_argument("--vertices", type=int, default=5000)
     ap.add_argument("--avg-degree", type=int, default=16)
     ap.add_argument("--blocks", type=int, default=8)
@@ -83,6 +90,9 @@ def main(argv=None) -> list:
 
     from repro_torch.core import (
         BiBlockEngine,
+        InMemoryWalker,
+        PlainBucketEngine,
+        SOGWEngine,
         deepwalk_task,
         erdos_renyi,
         partition_into_n_blocks,
@@ -91,14 +101,15 @@ def main(argv=None) -> list:
     )
 
     g = erdos_renyi(args.vertices, args.vertices * args.avg_degree // 2, seed=args.seed)
-    bg = partition_into_n_blocks(g, args.blocks)
+    bg_ram = partition_into_n_blocks(g, args.blocks)
     if args.graph_backend == "disk":
         from repro_torch.io import write_and_open
 
         # default scratch dir is removed at exit; an explicit --graph-dir
         # persists so the container can be reused across runs
-        bg = write_and_open(bg, args.graph_dir, io_coalesce_gap=args.io_coalesce_gap)
+        bg = write_and_open(bg_ram, args.graph_dir, io_coalesce_gap=args.io_coalesce_gap)
     else:
+        bg = bg_ram
         bg.io_coalesce_gap = args.io_coalesce_gap
     if args.task == "rwnv":
         task = rwnv_task(
@@ -115,12 +126,15 @@ def main(argv=None) -> list:
             walks_per_vertex=args.walks_per_vertex, length=args.length, seed=args.seed
         )
 
-    biblock_kw = dict(
+    device_kw = dict(advance_impl=args.advance, device=args.device)
+    pool_kw = dict(
+        device_kw,
         pool=args.pool,
         pool_flush_walks=args.pool_flush_walks,
         prefetch=not args.no_prefetch,
-        advance_impl=args.advance,
-        device=args.device,
+    )
+    biblock_kw = dict(
+        pool_kw,
         loading=args.loading,
         async_pipeline=not args.no_async_pipeline,
         writer_queue=args.writer_queue,
@@ -128,8 +142,18 @@ def main(argv=None) -> list:
     )
     print(CSV_HEADER)
     results = []
-    for name in args.engine or ["biblock"]:
-        res = BiBlockEngine(bg, task, **biblock_kw).run()
+    for name in args.engine or ["biblock", "sogw"]:
+        if name == "biblock":
+            res = BiBlockEngine(bg, task, **biblock_kw).run()
+        elif name == "pb":
+            res = PlainBucketEngine(bg, task, **pool_kw).run()
+        elif name == "sogw":
+            res = SOGWEngine(bg, task, **pool_kw).run()
+        elif name == "sgsc":
+            res = SOGWEngine(bg, task, static_cache=True, **pool_kw).run()
+        else:
+            # the oracle needs the whole CSR in RAM regardless of backend
+            res = InMemoryWalker(bg_ram, task, **device_kw).run(record_walks=False)
         print(csv_row(name, res), flush=True)
         results.append((name, res))
     return results

@@ -42,9 +42,14 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
     for m in (
         "repro_torch.kernels.rng",
         "repro_torch.kernels.pair_advance",
+        "repro_torch.kernels.bucket_hist",
+        "repro_torch.kernels.node2vec_ref",
+        "repro_torch.kernels.ops",
         "repro_torch.engines.step",
         "repro_torch.engines.base",
         "repro_torch.engines.biblock",
+        "repro_torch.engines.baselines",
+        "repro_torch.engines.inmemory",
         "repro_torch.launch.walk",
         "repro_torch.convert",
         "repro_torch.core.sampling",

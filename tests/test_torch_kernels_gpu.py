@@ -5,7 +5,10 @@ skips on a host without a CUDA device.  Run it there with
 
     python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerance: bitwise, on all six outputs of the pair advance.
+Tolerance: bitwise, on all six outputs of the pair advance (full sweep
+and ``max_hops``), on the bucket histogram's counts (both paths), on
+``node2vec_step`` / ``alias_step`` against the dense oracle, and on whole
+runs of every engine, kernel against plain version.
 """
 
 import numpy as np
@@ -160,3 +163,152 @@ def test_wrapper_rejects_wrong_dtype(cuda):
             order=2, k_max=1, n_iters=4, v_iters=v_iters, record=False,
             has_alias=False, max_len=LENGTH,
         )  # fmt: skip
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_hops", [1, 2])
+@pytest.mark.parametrize("order", [1, 2])
+def test_kernel_max_hops_matches_plain_version(cuda, order, max_hops):
+    bg = _graph(False)
+    pair = ResidentPair(bg, False, device=cuda)
+    pair.set_slot(0, BlockView.from_resident(bg.materialize_block(0)))
+    pair.set_slot(1, BlockView.from_resident(bg.materialize_block(1)))
+    args, v_iters = pair.device_args()
+    statics = dict(
+        order=order, k_max=16 if order == 2 else 1, n_iters=20, v_iters=v_iters, record=True,
+        has_alias=False, max_len=LENGTH, max_hops=max_hops,
+    )  # fmt: skip
+    lanes = _lanes(bg, cuda)
+    call = (*args, *lanes, key_halves(3), LENGTH, 1.0, 4.0, 0.25)
+    want = pair_advance_ref(*call, **statics)
+    got = kernel.fused_advance_pair(*call, **statics)
+    torch.cuda.synchronize()
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    assert int((got[2] - lanes[3]).max()) == max_hops
+
+
+# ---- the bucket histogram ---------------------------------------------------
+
+
+def _hist_inputs(n, nb, dev, seed=0):
+    r = np.random.default_rng(seed)
+    ids = r.integers(0, nb, n).astype(np.int32)
+    out = r.random(n) < 0.05  # out of range on both sides
+    ids[out] = r.choice([-1, -7, nb, nb + 3], out.sum())
+    valid = r.random(n) < 0.7
+    return torch.as_tensor(ids, device=dev), torch.as_tensor(valid, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb", [1, 16, 4096, 65536])
+@pytest.mark.parametrize("n", [1024, 1 << 17])
+def test_bucket_hist_matches_plain_version(cuda, n, nb):
+    from repro_torch.kernels.bucket_hist import (
+        SHARED_BINS_MAX, bucket_hist_kernel, bucket_hist_ref,
+    )  # fmt: skip
+
+    ids, valid = _hist_inputs(n, nb, cuda)
+    want = bucket_hist_ref(ids, valid, num_buckets=nb)
+    before = bucket_hist_kernel.launches
+    got = bucket_hist_kernel(ids, valid, num_buckets=nb)
+    torch.cuda.synchronize()
+    assert bucket_hist_kernel.launches == before + 1
+    assert got.dtype == torch.int32 and got.device == ids.device
+    assert torch.equal(got, want)
+    assert (nb <= SHARED_BINS_MAX) == (nb < 65536)  # both paths are covered
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [False, True])
+def test_bucket_hist_both_paths_at_small_nb(cuda, shared):
+    from repro_torch.kernels import bucket_hist as bh
+
+    ids, valid = _hist_inputs(1 << 16, 300, cuda, seed=1)
+    out = torch.zeros(300, dtype=torch.int32, device=cuda)
+    bh._launch(ids, valid, out, shared=shared)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bh.bucket_hist_ref(ids, valid, num_buckets=300))
+
+
+@pytest.mark.gpu
+def test_bucket_hist_errors_and_empty(cuda):
+    from repro_torch.kernels import bucket_hist as bh
+
+    ids, valid = _hist_inputs(2048, 8, cuda)
+    with pytest.raises(TypeError, match="valid"):
+        bh.bucket_hist_kernel(ids, valid.to(torch.int32), num_buckets=8)
+    with pytest.raises(TypeError, match="ids"):
+        bh.bucket_hist_kernel(ids.long(), valid, num_buckets=8)
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        bh.bucket_hist_kernel(ids[:1000], valid[:1000], num_buckets=8)
+    with pytest.raises(ValueError, match="valid is on"):
+        bh.bucket_hist_kernel(ids, valid.cpu(), num_buckets=8)
+    empty = bh.bucket_hist_kernel(ids[:0], valid[:0], num_buckets=8)
+    assert empty.device == ids.device and empty.tolist() == [0] * 8
+    with pytest.raises(RuntimeError, match="CUDA error"):  # too many bins for shared memory
+        bh._launch(ids, valid, torch.zeros(1 << 17, dtype=torch.int32, device=cuda), shared=True)
+
+
+# ---- the single-hop kernel tier --------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("pq", [(1.0, 1.0), (4.0, 0.25)])
+def test_node2vec_step_kernel_matches_dense_oracle(cuda, pq, weighted):
+    from repro_torch.kernels import alias_step, node2vec_step
+
+    bg = _graph(weighted)
+    pair = ResidentPair(bg, weighted, device=cuda)
+    pair.set_slot(0, BlockView.from_resident(bg.materialize_block(0)))
+    pair.set_slot(1, BlockView.from_resident(bg.materialize_block(2)))
+    args, v_iters = pair.device_args()
+    wid, prev, cur, hop, alive = _lanes(bg, cuda, n=512)
+    kw = dict(p=pq[0], q=pq[1], k_max=4, n_iters=20, v_iters=v_iters, has_alias=weighted)
+    before = kernel.fused_advance_pair.launches
+    zk, mk = node2vec_step(*args, wid, prev, cur, hop, alive, key_halves(9), **kw)
+    zr, mr = node2vec_step(*args, wid, prev, cur, hop, alive, key_halves(9), use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    assert kernel.fused_advance_pair.launches == before + 1
+    assert torch.equal(zk, zr) and torch.equal(mk, mr)
+    assert int(mk.sum()) > 0
+    ak = alias_step(*args, wid, cur, alive, key_halves(9), v_iters=v_iters, has_alias=weighted)
+    ar = alias_step(*args, wid, cur, alive, key_halves(9), v_iters=v_iters, has_alias=weighted,
+                    use_kernel=False)  # fmt: skip
+    assert all(torch.equal(a, b) for a, b in zip(ak, ar))
+
+
+# ---- the other engines -----------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["oracle", "pb", "sogw", "sgsc"])
+def test_other_engines_kernel_match_plain_version(cuda, engine):
+    from repro_torch.core import (
+        InMemoryWalker, PlainBucketEngine, SOGWEngine, partition_into_n_blocks, rwnv_task,
+    )  # fmt: skip
+
+    bg = partition_into_n_blocks(erdos_renyi(2000, 16000, seed=2), 3)
+    task = rwnv_task(p=4.0, q=0.25, walks_per_vertex=1, length=8, seed=2)
+    runs = {}
+    for impl in ("cuda", "torch"):
+        kw = dict(advance_impl=impl, device=cuda)
+        before = kernel.fused_advance_pair.launches
+        if engine == "oracle":
+            res = InMemoryWalker(bg, task, **kw).run()
+        elif engine == "pb":
+            res = PlainBucketEngine(bg, task, record_walks=True, **kw).run()
+        else:
+            res = SOGWEngine(bg, task, static_cache=engine == "sgsc", record_walks=True, **kw).run()
+        launched = kernel.fused_advance_pair.launches - before
+        assert launched == (res.advance_calls if impl == "cuda" else 0)
+        runs[impl] = res
+    a, b = runs["cuda"], runs["torch"]
+    np.testing.assert_array_equal(a.endpoint_counts, b.endpoint_counts)
+    np.testing.assert_array_equal(a.corpus, b.corpus)
+    assert a.steps_sampled == b.steps_sampled
+    for field in ("block_ios", "vertex_ios", "vertex_bytes", "ondemand_ios", "walk_bytes_written"):
+        assert getattr(a.stats, field) == getattr(b.stats, field)
+    oracle = InMemoryWalker(bg, task, device=cuda).run()
+    np.testing.assert_array_equal(a.endpoint_counts, oracle.endpoint_counts)
