@@ -13,11 +13,15 @@ Phases (each raises on failure, so the script exits non-zero):
    ``pair_advance_ref`` on the card, on pairs packed by the port's
    ``ResidentPair`` from the main-path graph (one full block pair; lanes
    padded like a real bucket), for order {1,2} x alias {off,on} x record
-   {off,on}, a deduped pair, an activated view and a single hop
-   (``max_hops=1``); all six outputs must be bitwise equal; CUDA events
-   time the kernel alone (launches queued behind a sleep kernel, so host
-   work is hidden; cross-checked by ``torch.profiler``), the whole wrapper
-   call and the plain version;
+   {off,on}, a deduped pair, an activated view, a single hop
+   (``max_hops=1``), the oracle's layout (the whole graph as one
+   contiguous slot, slot 1 aliasing it, 1,048,576 lanes), a gathered slot 1
+   as SOGW builds it, and order-2 lanes whose prev is in neither slot; all
+   six outputs must be bitwise equal; CUDA events time the kernel alone
+   (launches queued behind a sleep kernel, so host work is hidden;
+   cross-checked by ``torch.profiler``), the whole wrapper call and the
+   plain version; each row also gives the lanes by hops taken and which
+   slots the kernel's check found contiguous;
 3b. bucket histogram vs plain version — ``bucket_hist_kernel`` against
    ``bucket_hist_ref``, bitwise, over 1,048,576 walks with 16, 4096 and
    65536 buckets (the last takes the global-atomic path), about 5% of ids
@@ -26,10 +30,11 @@ Phases (each raises on failure, so the script exits non-zero):
 3c. kernel tier — ``node2vec_step`` through the kernel against the dense
    oracle (``use_kernel=False``), bitwise, on a pair of the phase-4 graph,
    for (p, q) in {(1, 1), (4, 0.25)}, plus an alias case and ``alias_step``;
-4. whole runs — ``BiBlockEngine``, then PB, SOGW, SGSC and
-   ``InMemoryWalker``, each with ``advance_impl="cuda"`` against ``"torch"``
-   on a 20k-vertex graph: endpoint counts, corpus, steps and deterministic
-   I/O charges must be identical, and every engine must equal the oracle;
+4. whole runs — ``BiBlockEngine`` (unweighted, then weighted through the
+   alias tables), then PB, SOGW, SGSC and ``InMemoryWalker``, each with
+   ``advance_impl="cuda"`` against ``"torch"`` on a 20k-vertex graph:
+   endpoint counts, corpus, steps and deterministic I/O charges must be
+   identical, and every engine must equal the oracle;
 5. main paths — ``python -m repro_torch.launch.walk`` (in-process) with
    rwnv p=4 q=0.25 on a 1M-vertex, 16M-edge-entry graph in 16 blocks, 1M
    walks of length 20: ``--engine biblock --engine oracle`` (biblock's
@@ -40,6 +45,13 @@ Phases (each raises on failure, so the script exits non-zero):
    per advance.
 
 There is no CPU fallback.
+
+    python3 chip_smoke.py --kernels-only [--src DIR] [--out NAME]
+
+runs phases 1-3 alone, on the port under ``DIR/src`` (default: this
+checkout's; e.g. a parent commit unpacked with ``git archive``), and writes
+the rows to ``chiprun_out/NAME.json``: the way to compare two versions of the
+kernel within one call (parent, change, change, parent).
 """
 
 from __future__ import annotations
@@ -156,7 +168,7 @@ def phase_kernels(dev):
     from repro_torch.core import BlockedGraph, BlockView, CSRGraph, erdos_renyi
     from repro_torch.core import partition_into_n_blocks
     from repro_torch.engines.base import ResidentPair
-    from repro_torch.engines.step import pair_advance_ref, pow2_pad
+    from repro_torch.engines.step import pair_advance_ref, pow2_pad, remap_search_iters
     from repro_torch.kernels import rng
     from repro_torch.kernels import pair_advance as pa
 
@@ -191,6 +203,24 @@ def phase_kernels(dev):
     s1, e1 = int(bg.block_starts[1]), int(bg.block_starts[2])
     in_b1 = prev[(prev >= s1) & (prev < e1)]
     act = np.union1d(in_b1[::2], np.arange(s1, e1, 7))  # misses half the block-1 prevs
+    # SOGW's slot 1: the rows of the prevs outside the current block
+    outside = ((prev < s0) | (prev >= e0)) & (hop > 0)
+    gathered = np.unique(prev[outside])
+    # prevmiss: every lane past hop 0, its prev outside both blocks of the pair
+    miss = (prev >= s0) & (prev < e1)
+    prev_miss = np.where(miss, r.integers(e1, VERTICES, n), prev)
+    lanes_miss = lanes.copy()
+    lanes_miss[1, :n], lanes_miss[3, :n] = prev_miss, np.maximum(hop, 1)
+    lanes_miss_dev = list(torch.as_tensor(lanes_miss, device=dev).unbind(0))
+    # the oracle: every vertex starts a walk (prev == cur, hop 0), whole graph
+    n_all = VERTICES
+    N_all = pow2_pad(n_all)
+    lanes_all = np.zeros((4, N_all), np.int32)
+    lanes_all[:3, :n_all] = np.arange(n_all)  # wid, prev, cur
+    alive_all = np.zeros(N_all, bool)
+    alive_all[:n_all] = True
+    lanes_all_dev = list(torch.as_tensor(lanes_all, device=dev).unbind(0))
+    alive_all_dev = torch.as_tensor(alive_all, device=dev)
 
     def views(graph, case):
         full = lambda b: BlockView.from_resident(graph.materialize_block(b))
@@ -199,27 +229,50 @@ def phase_kernels(dev):
             return v, v
         if case == "activated":
             return full(0), graph.partial_view(1, act)
+        if case == "gathered":
+            return full(0), graph.gather_view(gathered)
         return full(0), full(1)
+
+    def oracle_args(graph):
+        # the whole graph as one slot, slot 1 aliasing it (engines/inmemory.py)
+        V = graph.num_vertices
+        base0 = np.zeros(2, np.int32)
+        pair_np = (
+            np.arange(V, dtype=np.int32), np.array([V, V], np.int32), base0,
+            graph.graph.indptr.astype(np.int32), base0, graph.graph.indices.astype(np.int32),
+            base0, np.zeros(1, np.int32), np.ones(1, np.float32),
+        )  # fmt: skip
+        return tuple(torch.as_tensor(a, device=dev) for a in pair_np), remap_search_iters(V)
 
     variants = [("pair", o, a, rec) for o in (2, 1) for a in (False, True) for rec in (False, True)]
     variants += [("dedup", 2, False, True), ("activated", 2, False, True)]
     variants += [("single", 2, False, False)]  # one hop (max_hops=1), as ops.node2vec_step
+    variants += [("oracle", 2, False, False), ("gathered", 2, False, True)]
+    variants += [("prevmiss", 2, False, True)]
     n_iters = int(np.ceil(np.log2(max(bg.max_block_edges, 2)))) + 2
     key = rng.key_halves(0)
     rows = []
     for case, order, has_alias, record in variants:
         graph = bgw if has_alias else bg
-        pair = ResidentPair(graph, has_alias, device=dev)
-        v0, v1 = views(graph, case)
-        pair.set_slot(0, v0)
-        pair.set_slot(1, v1)
-        args, v_iters = pair.device_args()
+        if case == "oracle":
+            args, v_iters = oracle_args(graph)
+            lanes_in, alive_in, n_real = lanes_all_dev, alive_all_dev, n_all
+            n_it = int(np.ceil(np.log2(max(g.num_edges, 2)))) + 2
+        else:
+            pair = ResidentPair(graph, has_alias, device=dev)
+            v0, v1 = views(graph, case)
+            pair.set_slot(0, v0)
+            pair.set_slot(1, v1)
+            args, v_iters = pair.device_args()
+            lanes_in = lanes_miss_dev if case == "prevmiss" else lanes_dev
+            alive_in, n_real, n_it = alive_dev, n, n_iters
         statics = dict(
-            order=order, k_max=16 if order == 2 else 1, n_iters=n_iters, v_iters=v_iters,
+            order=order, k_max=16 if order == 2 else 1, n_iters=n_it, v_iters=v_iters,
             record=record, has_alias=has_alias, max_len=MAIN_LEN,
             max_hops=1 if case == "single" else None,
         )  # fmt: skip
-        call = (*args, *lanes_dev, alive_dev, key, MAIN_LEN, 1.0, MAIN_P, MAIN_Q)
+        N = lanes_in[0].shape[0]
+        call = (*args, *lanes_in, alive_in, key, MAIN_LEN, 1.0, MAIN_P, MAIN_Q)
         want = pair_advance_ref(*call, **statics)
         got = fused_advance_pair(*call, **statics)
         torch.cuda.synchronize()
@@ -230,6 +283,9 @@ def phase_kernels(dev):
         same = all(torch.equal(a, b) for a, b in zip(want, got))
         if not same:
             raise AssertionError(f"kernel != plain version on {case} {statics}: max|err|={err}")
+        # the slots the kernel found contiguous (a tree from before the
+        # slot check has no answer)
+        contiguous = pa.contiguous_slots() if hasattr(pa, "contiguous_slots") else None
         # the kernel alone (outputs allocated once, launched outside the
         # wrapper, so these launches are not counted), cross-checked with the
         # profiler; then the whole wrapper call, as the engine pays it
@@ -245,12 +301,15 @@ def phase_kernels(dev):
             nbytes += got[5].numel() * 4
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         steps = int(got[4])
+        # lanes by hops taken in the launch
+        taken = (got[2] - lanes_in[3])[:n_real].cpu().numpy()
         row = dict(
             case=case, order=order, has_alias=has_alias, record=record, lanes=N,
             pair_bytes=sum(t.numel() * t.element_size() for t in args), steps=steps,
             bitwise_equal=same, max_abs_err=err, kernel_ms=kernel_ms, profiler_ms=prof_ms,
             call_ms=call_ms, queue_host_s=host_s, plain_ms=plain_ms, bound_ms=bound_ms,
-            bytes=nbytes,
+            bytes=nbytes, hops_hist=np.bincount(taken).tolist(),
+            contiguous=contiguous,
         )  # fmt: skip
         rows.append(row)
         log(f"[kernels] {json.dumps(row)}")
@@ -281,31 +340,37 @@ def _whole_graph(weighted=False):
 
 
 def phase_whole_run(dev):
-    """Phase 4: a whole bi-block run, kernel against plain version."""
+    """Phase 4: whole bi-block runs, kernel against plain version: the
+    unweighted graph, then a weighted one (alias proposals)."""
     from repro_torch.core import rwnv_task
     from repro_torch.engines import BiBlockEngine
     from repro_torch.kernels.pair_advance import fused_advance_pair
 
-    bg = _whole_graph()
     task = rwnv_task(p=4.0, q=0.25, walks_per_vertex=1, length=10, seed=5)
-    out = {}
-    for impl in ("cuda", "torch"):
-        before = fused_advance_pair.launches
-        t0 = time.perf_counter()
-        res = BiBlockEngine(bg, task, record_walks=True, advance_impl=impl, device=dev).run()
-        launched = fused_advance_pair.launches - before
-        out[impl] = (res, time.perf_counter() - t0, launched)
-        log(f"[whole] {impl}: {out[impl][1]:.2f}s, steps {res.steps_sampled}, "
-            f"advance calls {res.advance_calls}, kernel launches {launched}")  # fmt: skip
-    (rc, _, lc), (rt, _, lt) = out["cuda"], out["torch"]
-    if _sig(rc) != _sig(rt):
-        raise AssertionError("whole run: cuda and torch signatures differ")
-    if lc != rc.advance_calls or lc == 0 or lt != 0:
-        raise AssertionError(f"whole run: launches {lc}/{lt} vs advance calls {rc.advance_calls}")
-    if rc.endpoint_counts.sum() != rc.num_walks or (rc.corpus[:, 0] < 0).any():
-        raise AssertionError("whole run: walks unaccounted for")
-    return dict(seconds_cuda=out["cuda"][1], seconds_torch=out["torch"][1],
-                steps=rc.steps_sampled, advance_calls=rc.advance_calls)  # fmt: skip
+    legs = {}
+    for leg, weighted in (("plain", False), ("weighted", True)):
+        bg = _whole_graph(weighted)
+        out = {}
+        for impl in ("cuda", "torch"):
+            before = fused_advance_pair.launches
+            t0 = time.perf_counter()
+            res = BiBlockEngine(bg, task, record_walks=True, advance_impl=impl, device=dev).run()
+            launched = fused_advance_pair.launches - before
+            out[impl] = (res, time.perf_counter() - t0, launched)
+            log(f"[whole] {leg} {impl}: {out[impl][1]:.2f}s, steps {res.steps_sampled}, "
+                f"advance calls {res.advance_calls}, kernel launches {launched}")  # fmt: skip
+        (rc, _, lc), (rt, _, lt) = out["cuda"], out["torch"]
+        if _sig(rc) != _sig(rt):
+            raise AssertionError(f"whole run ({leg}): cuda and torch signatures differ")
+        if lc != rc.advance_calls or lc == 0 or lt != 0:
+            raise AssertionError(
+                f"whole run ({leg}): launches {lc}/{lt} vs advance calls {rc.advance_calls}"
+            )
+        if rc.endpoint_counts.sum() != rc.num_walks or (rc.corpus[:, 0] < 0).any():
+            raise AssertionError(f"whole run ({leg}): walks unaccounted for")
+        legs[leg] = dict(seconds_cuda=out["cuda"][1], seconds_torch=out["torch"][1],
+                         steps=rc.steps_sampled, advance_calls=rc.advance_calls)  # fmt: skip
+    return legs
 
 
 def phase_hist(dev):
@@ -514,13 +579,20 @@ def phase_main(engines, extra=(), oracle_counts=None):
     return infos, oracle_counts
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true", help="phases 1-3 only")
+    ap.add_argument("--src", default=str(ROOT), help="checkout whose src/ holds the port")
+    ap.add_argument("--out", default="kernels", help="--kernels-only: chiprun_out/OUT.json")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU fallback", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(args.src).resolve() / "src"))
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -540,6 +612,13 @@ def main() -> int:
                 log(f"[build] {name}: {line.strip()}")
 
     rows = phase_kernels(dev)
+    if args.kernels_only:
+        OUT.mkdir(exist_ok=True)
+        (OUT / f"{args.out}.json").write_text(json.dumps(dict(
+            card=card, src=args.src, build_s=build_s, variants=rows, total_s=elapsed(),
+        ), indent=1))  # fmt: skip
+        log(f"[done] {elapsed():.1f}s")
+        return 0
     hist = phase_hist(dev)
     tier = phase_tier(dev)
     whole = phase_whole_run(dev)

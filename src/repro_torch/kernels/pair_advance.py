@@ -12,7 +12,8 @@ the Pallas TPU kernel ``pair_advance_kernel`` of
 (:func:`repro_torch.engines.step.pair_advance_ref`) for tensors on the CPU,
 and launches the kernel for tensors on a CUDA device (or raises).  Both
 return ``(prev, cur, hop, alive, steps, trace)`` and are bit-identical.
-``fused_advance_pair.launches`` counts kernel launches.
+``fused_advance_pair.launches`` counts kernel launches, and
+:func:`contiguous_slots` says which slots the last launch remapped in O(1).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from repro_torch.engines.step import accept_thresholds, pair_advance_ref
 
 from . import build
 
-__all__ = ["fused_advance_pair", "pair_advance_ref"]
+__all__ = ["contiguous_slots", "fused_advance_pair", "pair_advance_ref"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,7 +36,7 @@ _F = ctypes.c_float
 _ARGTYPES = (
     [_P, _I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I]  # the pair
     + [_P] * 5  # lanes in
-    + [_P] * 6  # lanes out, trace, steps
+    + [_P] * 7  # lanes out, trace, steps, slot_flags
     + [_I, _U, _U, _I, _F, _F, _F, _F]  # n, key, length, decay, thresholds
     + [_I] * 8  # order, k_max, n_iters, v_iters, record, has_alias, max_len, max_hops
     + [_P]  # stream
@@ -62,8 +63,9 @@ def _check(name, t, dtype, device):
 
 def _prepare(args, lanes, key, length, decay, p, q, *, order, k_max, n_iters, v_iters, record,
              has_alias, max_len, max_hops=None):  # fmt: skip
-    """Check CUDA inputs, allocate the outputs, and return them with the
-    kernel's ctypes argument list (for :func:`_launch`)."""
+    """Check CUDA inputs, allocate the outputs, and return them with a
+    plan for :func:`_launch`: the device, the kernel's ctypes argument list
+    and the slot flags (the plan keeps the outputs it points at alive)."""
     vids, nverts, vid_base, indptr, ptr_base, indices, ind_base, alias_j, alias_q = args
     wid, prev, cur, hop, alive = lanes
     dev = prev.device
@@ -98,7 +100,8 @@ def _prepare(args, lanes, key, length, decay, p, q, *, order, k_max, n_iters, v_
         hop_out = torch.empty_like(hop)
         alive_out = torch.empty_like(alive)
         trace = torch.full((n, max_len + 1) if record else (1, 1), -1, dtype=i32, device=dev)
-        steps = torch.zeros(1, dtype=i32, device=dev)
+        counts = torch.zeros(3, dtype=i32, device=dev)  # the step count and two slot flags
+        steps, flags = counts[0], counts[1:]
         stream = torch.cuda.current_stream(dev).cuda_stream
     acc_ret, acc_nbr, acc_away = (float(a) for a in accept_thresholds(p, q))
     k0, k1 = (int(k) & 0xFFFFFFFF for k in key)
@@ -108,18 +111,20 @@ def _prepare(args, lanes, key, length, decay, p, q, *, order, k_max, n_iters, v_
         indices.numel(), ind_base.data_ptr(), alias_j.data_ptr(), alias_q.data_ptr(),
         alias_q.numel(),
         *(t.data_ptr() for t in lanes),
-        *(t.data_ptr() for t in (prev_out, cur_out, hop_out, alive_out, trace, steps)),
+        *(t.data_ptr() for t in (prev_out, cur_out, hop_out, alive_out, trace, steps, flags)),
         n, k0, k1, int(length), float(decay), acc_ret, acc_nbr, acc_away,
         order, k_max, n_iters, v_iters, int(bool(record)), int(bool(has_alias)), max_len,
         hops, stream,
     )  # fmt: skip
-    return (prev_out, cur_out, hop_out, alive_out, steps[0], trace), (dev, cargs)
+    outs = (prev_out, cur_out, hop_out, alive_out, steps, trace)
+    return outs, (dev, cargs, flags, outs)
 
 
 def _launch(plan) -> None:
     """Launch the kernel once on an argument list made by :func:`_prepare`.
-    Relaunching it rewrites the lanes and trace and adds to ``steps``."""
-    dev, cargs = plan
+    Relaunching it rewrites the lanes and trace and adds to ``steps`` (the
+    slot check it runs first finds the same flags on the same pair)."""
+    dev, cargs = plan[:2]
     with torch.cuda.device(dev):
         rc = _kernel()(*cargs)
     if rc != 0:
@@ -181,8 +186,21 @@ def fused_advance_pair(
     outs, plan = _prepare(args, lanes, key, length, decay, p, q, **kw)
     _launch(plan)
     fused_advance_pair.launches += 1
+    global _last_flags
+    _last_flags = plan[2]
     return outs
 
 
 #: kernel launches since the last reset (CPU calls do not count)
 fused_advance_pair.launches = 0
+_last_flags = None
+
+
+def contiguous_slots() -> list[bool]:
+    """Per slot of the pair that :func:`fused_advance_pair` last launched the
+    kernel on: True where the kernel's slot check found one contiguous run
+    of ids and remapped in O(1), False where it kept the search.  A slot 1
+    with slot 0's segment takes slot 0's answer.  Waits for the launch."""
+    if _last_flags is None:
+        raise RuntimeError("fused_advance_pair has not launched the kernel yet")
+    return [f == 0 for f in _last_flags.tolist()]

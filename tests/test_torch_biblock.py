@@ -6,7 +6,8 @@ Same graph, task and seed through ``repro``'s ``BiBlockEngine``
 deterministic ``IOStats`` charge must be identical across {full, ondemand,
 auto} loading x {ram, disk} graph x {memory, disk} pool, serially and under
 the async pipeline with ``pool_shards`` in {1, 4}, for node2vec (order 2)
-and DeepWalk (order 1).  Tolerance: bitwise.
+and DeepWalk (order 1), and on a weighted graph (alias proposals) with full
+and on-demand loading.  Tolerance: bitwise.
 """
 
 import os
@@ -22,6 +23,8 @@ torch = pytest.importorskip("torch")  # the port needs PyTorch; CI legs without 
 import repro.io as jio  # noqa: E402
 import repro_torch.io as tio  # noqa: E402
 from repro.core import BiBlockEngine as JBiBlockEngine  # noqa: E402
+from repro.core import BlockedGraph as JBlockedGraph  # noqa: E402
+from repro.core import CSRGraph as JCSRGraph  # noqa: E402
 from repro.core import deepwalk_task as j_deepwalk  # noqa: E402
 from repro.core import erdos_renyi, partition_into_n_blocks  # noqa: E402
 from repro.core import rwnv_task as j_rwnv  # noqa: E402
@@ -54,6 +57,18 @@ def _graphs(seed=3, nv=90, nblocks=3):
     jbg = partition_into_n_blocks(erdos_renyi(nv, nv * 5, seed=seed), nblocks)
     g = jbg.graph
     return jbg, blocked_graph_from_arrays(g.indptr, g.indices, None, jbg.block_starts)
+
+
+def _weighted_graphs(seed=3, nv=90, nblocks=3):
+    """The graph of :func:`_graphs` with seeded edge weights, alias tables
+    built on both sides."""
+    jbg, _ = _graphs(seed, nv, nblocks)
+    g = jbg.graph
+    w = np.random.default_rng(seed).uniform(0.1, 2.0, g.indices.shape).astype(np.float32)
+    jbgw = JBlockedGraph(JCSRGraph(g.indptr, g.indices, w), jbg.block_starts, build_alias=True)
+    tbgw = blocked_graph_from_arrays(g.indptr, g.indices, w, jbg.block_starts)
+    tbgw.ensure_alias()
+    return jbgw, tbgw
 
 
 def _tasks(order, seed=3):
@@ -120,6 +135,20 @@ def test_biblock_deepwalk_first_order_matches_jax(tmp_path, loading):
     jbg, tbg = _graphs()
     runs = _pair_of_runs(tmp_path, jbg, tbg, 1, "ram", loading=loading, async_pipeline=False)
     assert _sig(runs["torch"]) == _sig(runs["jax"])
+
+
+@pytest.mark.parametrize("loading", ["full", "ondemand"])
+def test_biblock_weighted_matches_jax(tmp_path, loading):
+    """A weighted graph walks through the alias tables of both packages'
+    packed pairs (full blocks, and activated views under on-demand loading)."""
+    jbg, tbg = _weighted_graphs()
+    assert jbg.has_weights and tbg.has_weights
+    runs = _pair_of_runs(tmp_path, jbg, tbg, 2, "ram", loading=loading, async_pipeline=False)
+    assert _sig(runs["torch"]) == _sig(runs["jax"]), loading
+    res = runs["torch"]
+    assert res.endpoint_counts.sum() == res.num_walks
+    assert res.advance_calls > 0
+    assert (res.stats.ondemand_ios > 0) == (loading == "ondemand")
 
 
 @given(seed=st.integers(0, 10_000), nv=st.integers(50, 100), nblocks=st.integers(2, 4))

@@ -9,6 +9,12 @@ Tolerance: bitwise, on all six outputs of the pair advance (full sweep
 and ``max_hops``), on the bucket histogram's counts (both paths), on
 ``node2vec_step`` / ``alias_step`` against the dense oracle, and on whole
 runs of every engine, kernel against plain version.
+
+The pair-advance cases hit both sides of each of the kernel's guards: slots
+that hold one contiguous run of ids (full blocks, the oracle's whole graph)
+and slots that do not (activated, gathered, and runs with equal end points
+but a gap or a swap, or too few search iterations); order-2 prevs found in
+the pair and prevs in neither slot.
 """
 
 import numpy as np
@@ -19,7 +25,11 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import BlockedGraph, BlockView, CSRGraph, erdos_renyi  # noqa: E402
 from repro_torch.engines import BiBlockEngine  # noqa: E402
 from repro_torch.engines.base import ResidentPair  # noqa: E402
-from repro_torch.engines.step import pair_advance_ref, pow2_pad  # noqa: E402
+from repro_torch.engines.step import (  # noqa: E402
+    pair_advance_ref,
+    pow2_pad,
+    remap_search_iters,
+)
 from repro_torch.kernels import pair_advance as kernel  # noqa: E402
 from repro_torch.kernels.rng import key_halves  # noqa: E402
 
@@ -81,37 +91,35 @@ def _lanes(bg, dev, n=900, dead=False):
     return [*torch.as_tensor(lanes, device=dev).unbind(0), torch.as_tensor(alive, device=dev)]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("record", [False, True])
-@pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("case", ["pair", "dedup", "activated", "deadend"])
-@pytest.mark.parametrize("order", [1, 2])
-def test_kernel_matches_plain_version(cuda, order, case, weighted, record):
-    dead = case == "deadend"
-    bg = _graph(weighted, dead)
-    pair = ResidentPair(bg, weighted, device=cuda)
-    full = lambda b: BlockView.from_resident(bg.materialize_block(b))
-    v0 = full(0)
-    v1 = {
-        "pair": full(1),
-        "dedup": v0,
-        "activated": bg.partial_view(1, np.arange(1000, 2000, 3)),
-        "deadend": full(1),
-    }
-    pair.set_slot(0, v0)
-    pair.set_slot(1, v1[case])
-    args, v_iters = pair.device_args()
-    statics = dict(
-        order=order,
-        k_max=16 if order == 2 else 1,
-        n_iters=int(np.ceil(np.log2(max(bg.max_block_edges, 2)))) + 2,
-        v_iters=v_iters,
-        record=record,
-        has_alias=weighted,
-        max_len=LENGTH,
-    )
-    lanes = _lanes(bg, cuda, dead=dead)
-    call = (*args, *lanes, key_halves(11), LENGTH, 0.85, 3.0, 0.5)
+def _oracle_args(bg, dev):
+    """The whole graph as one slot, slot 1 aliasing it, every base 0 (the
+    layout of ``InMemoryWalker``)."""
+    from repro_torch.core.sampling import build_alias_rows
+
+    g = bg.graph
+    V = g.num_vertices
+    indptr = g.indptr.astype(np.int32)
+    alias_j, alias_q = np.zeros(1, np.int32), np.ones(1, np.float32)
+    if g.weights is not None:
+        alias_j, alias_q = build_alias_rows(indptr, V, max(g.num_edges, 1), g.weights)
+    base0 = np.zeros(2, np.int32)
+    arrays = (np.arange(V, dtype=np.int32), np.array([V, V], np.int32), base0, indptr, base0,
+              g.indices.astype(np.int32), base0, alias_j, alias_q)  # fmt: skip
+    return tuple(torch.as_tensor(a, device=dev) for a in arrays), remap_search_iters(V)
+
+
+def _prev_outside_pair(lanes, n=900):
+    """Move every real lane past hop 0 with its prev in block 2, outside
+    both slots of a (block 0, block 1) pair."""
+    r = np.random.default_rng(8)
+    lanes[1][:n] = torch.as_tensor(r.integers(2000, 3000, n), dtype=torch.int32)
+    lanes[3][:n] = lanes[3][:n].clamp(min=1)
+    return lanes
+
+
+def _check_launch(call, statics, contiguous):
+    """One wrapper call equals the plain version bitwise, and each slot took
+    the side of the contiguity guard given in ``contiguous``."""
     want = pair_advance_ref(*call, **statics)
     before = kernel.fused_advance_pair.launches
     got = kernel.fused_advance_pair(*call, **statics)
@@ -120,6 +128,53 @@ def test_kernel_matches_plain_version(cuda, order, case, weighted, record):
     for a, b in zip(want, got):
         assert a.shape == b.shape and a.dtype == b.dtype
         assert torch.equal(a, b)
+    assert kernel.contiguous_slots() == contiguous
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("record", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize(
+    "case", ["pair", "dedup", "activated", "deadend", "oracle", "gathered", "prevmiss"]
+)
+@pytest.mark.parametrize("order", [1, 2])
+def test_kernel_matches_plain_version(cuda, order, case, weighted, record):
+    dead = case == "deadend"
+    bg = _graph(weighted, dead)
+    lanes = _lanes(bg, cuda, dead=dead)
+    if case == "prevmiss":
+        lanes = _prev_outside_pair(lanes)
+    # slot 1 of a deduped pair and of the oracle takes slot 0's flag
+    contiguous = {"activated": [True, False], "gathered": [True, False]}.get(case, [True, True])
+    edges = bg.max_block_edges
+    if case == "oracle":
+        args, v_iters = _oracle_args(bg, cuda)
+        edges = bg.num_edges
+    else:
+        pair = ResidentPair(bg, weighted, device=cuda)
+        full = lambda b: BlockView.from_resident(bg.materialize_block(b))
+        prev = lanes[1].cpu().numpy()[:900]
+        outside = (prev >= 1000) & (lanes[3].cpu().numpy()[:900] > 0)
+        v1 = {
+            "dedup": lambda: pair.views[0],
+            "activated": lambda: bg.partial_view(1, np.arange(1000, 2000, 3)),
+            "gathered": lambda: bg.gather_view(np.unique(prev[outside])),  # as SOGW builds it
+        }.get(case, lambda: full(1))
+        pair.set_slot(0, full(0))
+        pair.set_slot(1, v1())
+        args, v_iters = pair.device_args()
+    statics = dict(
+        order=order,
+        k_max=16 if order == 2 else 1,
+        n_iters=int(np.ceil(np.log2(max(edges, 2)))) + 2,
+        v_iters=v_iters,
+        record=record,
+        has_alias=weighted,
+        max_len=LENGTH,
+    )
+    call = (*args, *lanes, key_halves(11), LENGTH, 0.85, 3.0, 0.5)
+    got = _check_launch(call, statics, contiguous)
     assert int(got[4]) > 0
     if dead:  # the dead-end lanes died where they stood, writing no trace
         k = DEAD.size
@@ -128,6 +183,59 @@ def test_kernel_matches_plain_version(cuda, order, case, weighted, record):
         assert torch.equal(got[1][:k].cpu(), torch.as_tensor(DEAD, dtype=torch.int32))
         if record:
             assert (got[5][:k] == -1).all()
+
+
+def _broken_run(bg, layout):
+    """Block 1 as a view whose vids keep the block's end points and length
+    but are not its contiguous run: 1500 dropped and 1501 repeated (a gap),
+    or 1500 and 1501 swapped (unsorted)."""
+    g = bg.graph
+    vids = np.arange(1000, 2000)
+    if layout == "gap":
+        vids[500] = 1501
+    else:
+        vids[500], vids[501] = 1501, 1500
+    segs = [g.indices[g.indptr[v] : g.indptr[v + 1]] for v in vids]
+    alias = None
+    if g.weights is not None:
+        blk = bg.materialize_block(1)
+        rows = [slice(blk.indptr[v - 1000], blk.indptr[v - 999]) for v in vids]
+        alias = [(blk.alias_j[r], blk.alias_q[r]) for r in rows]
+    return BlockView.from_rows(1, vids, segs, alias)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("layout", ["gap", "swap", "few_iters"])
+@pytest.mark.parametrize("order", [1, 2])
+def test_kernel_contiguity_guard(cuda, order, layout, weighted):
+    """Slots that look contiguous from their end points (or are contiguous
+    but searched with too few halvings) keep the search, and walk exactly
+    as the plain version does through the vertices where the O(1) remap
+    would differ."""
+    bg = _graph(weighted)
+    pair = ResidentPair(bg, weighted, device=cuda)
+    pair.set_slot(0, BlockView.from_resident(bg.materialize_block(0)))
+    if layout == "few_iters":
+        pair.set_slot(1, BlockView.from_resident(bg.materialize_block(1)))
+    else:
+        pair.set_slot(1, _broken_run(bg, layout))
+    args, v_iters = pair.device_args()
+    contiguous = [True, False]
+    if layout == "few_iters":  # 2^6 < 1000 vertices: the search stops short in both slots
+        v_iters, contiguous = 6, [False, False]
+    lanes = _lanes(bg, cuda)
+    # lanes on and next to the altered ids, as cur and as prev
+    lanes[2][:8] = torch.as_tensor([1499, 1500, 1501, 1502] * 2, dtype=torch.int32)
+    lanes[1][8:16] = torch.as_tensor([1499, 1500, 1501, 1502] * 2, dtype=torch.int32)
+    lanes[3][:16] = 1
+    lanes[4][:16] = True
+    statics = dict(
+        order=order, k_max=16 if order == 2 else 1, n_iters=20, v_iters=v_iters, record=True,
+        has_alias=weighted, max_len=LENGTH,
+    )  # fmt: skip
+    call = (*args, *lanes, key_halves(12), LENGTH, 0.85, 3.0, 0.5)
+    _check_launch(call, statics, contiguous)
 
 
 @pytest.mark.gpu

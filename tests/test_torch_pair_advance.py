@@ -9,7 +9,7 @@ same seeded lanes then go through
   (the Pallas kernel in interpret mode),
 * ``repro_torch.engines.step.pair_advance_ref`` (the plain PyTorch version),
 * ``repro_torch.kernels.pair_advance.fused_advance_pair`` on CPU tensors
-  (the wrapper's CPU path),
+  (the wrapper's CPU path, which is the plain version),
 
 and all six outputs must agree exactly.  Cases cover order 1/2, alias
 tables on/off (a weighted graph), trace recording on/off, a deduped pair
@@ -19,6 +19,12 @@ accept is common; one case runs the engines' 16 (without the Pallas
 interpreter, whose compile grows with the unrolled rounds).  The kernel
 itself is held against the plain version on the card by
 ``tests/test_torch_kernels_gpu.py``.
+
+The layouts on which the CUDA kernel takes or refuses its fast paths are
+held here too, JAX advance against plain version: the oracle's (the whole
+graph as one contiguous slot, slot 1 aliasing it), a gathered slot 1 as
+SOGW builds it, lanes whose prev is in neither slot, and a slot whose ids
+keep a full block's end points but have a gap or a swap.
 """
 
 import jax.numpy as jnp
@@ -37,7 +43,7 @@ from repro.kernels.pair_advance import fused_advance_pair as pallas_advance  # n
 from repro_torch.convert import blocked_graph_from_arrays  # noqa: E402
 from repro_torch.core.graph import BlockView as TBlockView  # noqa: E402
 from repro_torch.engines.base import ResidentPair as TResidentPair  # noqa: E402
-from repro_torch.engines.step import pair_advance_ref, pow2_pad  # noqa: E402
+from repro_torch.engines.step import pair_advance_ref, pow2_pad, remap_search_iters  # noqa: E402
 from repro_torch.kernels import pair_advance as tkernel  # noqa: E402
 from repro_torch.kernels.rng import key_halves  # noqa: E402
 
@@ -233,3 +239,80 @@ def test_activated_view_exercises_prev_miss():
     _, prev, _, hop, alive = _lanes(jbg)
     in_pair = (prev < 40) | np.isin(prev, view.vids)
     assert (alive & (hop > 0) & ~in_pair).sum() > 10
+
+
+# ---- the layouts of the kernel's guards --------------------------------------
+
+
+def _broken_block1(bg, view_cls, layout):
+    """Block 1 (vertices 40..79) as a view with its end points and length
+    but not its contiguous run: 60 dropped and 61 repeated, or 60 and 61
+    swapped."""
+    g = bg.graph
+    vids = np.arange(40, 80)
+    if layout == "gap":
+        vids[20] = 61
+    else:
+        vids[20], vids[21] = 61, 60
+    segs = [g.indices[g.indptr[v] : g.indptr[v + 1]] for v in vids]
+    return view_cls.from_rows(1, vids, segs)
+
+
+def _layout_args(layout, jbg, tbg, lanes):
+    """Both packages' packed arrays for one layout, and ``v_iters``."""
+    if layout == "oracle":
+        g = jbg.graph
+        V = g.num_vertices
+        base0 = np.zeros(2, np.int32)
+        arrays = (np.arange(V, dtype=np.int32), np.array([V, V], np.int32), base0,
+                  g.indptr.astype(np.int32), base0, g.indices.astype(np.int32), base0,
+                  np.zeros(1, np.int32), np.ones(1, np.float32))  # fmt: skip
+        arrays_t = [torch.from_numpy(a) for a in arrays]
+        return [jnp.asarray(a) for a in arrays], arrays_t, remap_search_iters(V)
+    jpair = JResidentPair(jbg, False)
+    tpair = TResidentPair(tbg, False, device="cpu")
+    prev, hop = lanes[1], lanes[3]
+    for pair, bg, view_cls in ((jpair, jbg, JBlockView), (tpair, tbg, TBlockView)):
+        pair.set_slot(0, view_cls.from_resident(bg.materialize_block(0)))
+        if layout == "gathered":  # SOGW: the rows of the prevs outside block 0
+            v1 = bg.gather_view(np.unique(prev[(prev >= 40) & (hop > 0)]))
+        elif layout in ("gap", "swap"):
+            v1 = _broken_block1(bg, view_cls, layout)
+        else:
+            v1 = view_cls.from_resident(bg.materialize_block(1))
+        pair.set_slot(1, v1)
+    jargs, jv = jpair.device_args()
+    targs, tv = tpair.device_args()
+    assert jv == tv
+    return jargs, targs, tv
+
+
+@pytest.mark.parametrize("layout", ["oracle", "gathered", "prevmiss", "gap", "swap"])
+@pytest.mark.parametrize("order", [1, 2])
+def test_advance_kernel_guard_layouts_match_jax(order, layout):
+    import jax
+
+    jbg, tbg = _graphs(False)
+    lanes = [x.copy() for x in _lanes(jbg)]
+    if layout == "prevmiss":  # every prev in block 2, outside the pair; no lane at hop 0
+        lanes[1][:200] = np.random.default_rng(SEED).integers(80, 120, 200)
+        lanes[3][:200] = np.maximum(lanes[3][:200], 1)
+    if layout in ("gap", "swap"):  # lanes on the altered ids, as cur and as prev
+        lanes[2][:4] = lanes[1][4:8] = [59, 60, 61, 62]
+        lanes[3][:8] = 1
+        lanes[4][:8] = True
+    jargs, targs, v_iters = _layout_args(layout, jbg, tbg, lanes)
+    edges = jbg.num_edges if layout == "oracle" else jbg.max_block_edges
+    statics = dict(
+        order=order, k_max=4 if order == 2 else 1,
+        n_iters=int(np.ceil(np.log2(max(edges, 2)))) + 2, v_iters=v_iters, record=True,
+        has_alias=False, max_len=LENGTH,
+    )  # fmt: skip
+    jscal = (jnp.int32(LENGTH), jnp.float32(0.85), jnp.float32(P), jnp.float32(Q))
+    jl = [jnp.asarray(x) for x in lanes]
+    outs = {"jax": jax_advance(*jargs, *jl, jax.random.PRNGKey(SEED), *jscal, **statics)}
+    tl = [torch.from_numpy(x) for x in lanes]
+    tscal = (key_halves(SEED), LENGTH, 0.85, P, Q)
+    outs["ref"] = pair_advance_ref(*targs, *tl, *tscal, **statics)
+    _assert_same(outs)
+    assert int(_np(outs["ref"][4])) > 0
