@@ -24,9 +24,12 @@ Phases (each raises on failure, so the script exits non-zero):
    slots the kernel's check found contiguous;
 3b. bucket histogram vs plain version — ``bucket_hist_kernel`` against
    ``bucket_hist_ref``, bitwise, over 1,048,576 walks with 16, 4096 and
-   65536 buckets (the last takes the global-atomic path), about 5% of ids
-   out of range and 70% valid; timed like phase 3, beside
-   ``torch.bincount`` as the library yardstick;
+   65536 buckets, about 5% of ids out of range and 70% valid; timed like
+   phase 3, beside ``torch.bincount`` as the library yardstick; each row
+   records the host plan the kernel took (path, bin ranges, grid; no path
+   launches a thread block cluster, so its cluster size is 1) and the host
+   microseconds per wrapper call over 10,000 calls (at 16 buckets, with
+   the functions that take them, by cProfile);
 3c. kernel tier — ``node2vec_step`` through the kernel against the dense
    oracle (``use_kernel=False``), bitwise, on a pair of the phase-4 graph,
    for (p, q) in {(1, 1), (4, 0.25)}, plus an alias case and ``alias_step``;
@@ -48,10 +51,17 @@ There is no CPU fallback.
 
     python3 chip_smoke.py --kernels-only [--src DIR] [--out NAME]
 
-runs phases 1-3 alone, on the port under ``DIR/src`` (default: this
+runs phases 1-3b alone, on the port under ``DIR/src`` (default: this
 checkout's; e.g. a parent commit unpacked with ``git archive``), and writes
 the rows to ``chiprun_out/NAME.json``: the way to compare two versions of the
-kernel within one call (parent, change, change, parent).
+kernels within one call (parent, change, change, parent).
+
+    python3 chip_smoke.py --hist-sweep [--out NAME]
+
+times every bucket-histogram plan around the host plan's choice (each path,
+block size, grid and bin ranges) at 1,048,576 walks over bucket counts on
+both sides of each of the plan's limits, each bitwise against the plain
+version: the measurements the plan's limits rest on.
 """
 
 from __future__ import annotations
@@ -79,6 +89,13 @@ WHOLE_VERTICES, WHOLE_BLOCKS = 20_000, 4
 #: the bucket histogram's shapes (phase 3b): the main path's 1M walks,
 #: padded to the tile, over its 16 blocks and two larger bucket counts
 HIST_N, HIST_NBS = 1_048_576, (16, 4096, 65536)
+#: the bucket counts of ``--hist-sweep``: both sides of each of the plan's
+#: limits at HIST_N walks, and counts between them
+HIST_SWEEP_NBS = (
+    16, 32, 64, 128, 248, 249, 283, 284, 300, 512, 513, 682, 683, 1024, 1025, 2048, 2049, 4096,
+    8192, 16384, 21845, 21846, 32768, 58112, 58113, 65536, 80659, 80660, 104857, 104858, 131072,
+    232448,
+)
 
 
 def main_argv(engines=("biblock",)):
@@ -152,8 +169,39 @@ def profiled_ms(launch, reps: int, kernel: str):
     for ev in prof.key_averages():
         if kernel in ev.key:
             us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
-            return us / ev.count / 1e3 if us > 0 else None
+            if us > 0:
+                return us / ev.count / 1e3
     return None
+
+
+def host_cost(call, *, profile: bool, calls: int = 10_000):
+    """Host microseconds per ``call()``: the least of three loops of
+    ``calls`` calls, each closed by one synchronize (the device work per
+    call is shorter than the host's, so the loop is host-bound).  With
+    ``profile``, also the functions that take the most time per call in
+    one more loop under cProfile (which slows it): ``[name, us]`` rows."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    def loop():
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    loop()  # warm up
+    best = min(loop() for _ in range(3))
+    if not profile:
+        return best, None
+    prof = cProfile.Profile()
+    prof.runcall(loop)
+    stats = pstats.Stats(prof).stats
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:12]
+    return best, [[f"{Path(f).name}:{line}:{fn}", tt / calls * 1e6]
+                  for (f, line, fn), (_, _, tt, _, _) in top]  # fmt: skip
 
 
 def max_abs_err(want, got) -> int:
@@ -373,21 +421,36 @@ def phase_whole_run(dev):
     return legs
 
 
+def _hist_data(r, nb):
+    """1,048,576 walks over ``nb`` buckets: about 5% of ids out of range on
+    both sides, 70% valid (numpy arrays)."""
+    import numpy as np
+
+    ids = r.integers(0, nb, HIST_N).astype(np.int32)
+    out = r.random(HIST_N) < 0.05
+    ids[out] = np.where(r.random(out.sum()) < 0.5, -1 - r.integers(0, nb, out.sum()),
+                        nb + r.integers(0, nb, out.sum()))  # fmt: skip
+    return ids, r.random(HIST_N) < 0.7
+
+
 def phase_hist(dev):
-    """Phase 3b: the bucket histogram against its plain version."""
+    """Phase 3b: the bucket histogram against its plain version.  Both trees
+    of an A/B are timed through ``bucket_hist._launch(ids, valid, out,
+    ...)``, which adds into a zeroed ``out``: a tree with a host plan
+    (``bucket_hist.plan``) launches the plan's choice, and its row records
+    that plan; an older one takes ``shared=``, its wrapper's rule."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import bucket_hist as bh
 
+    planned = hasattr(bh, "plan")
+    # the floor of any launch timed this way: a one-thread kernel
+    floor_ms, _ = queued_ms(lambda: torch.cuda._sleep(1), 20)
     r = np.random.default_rng(3)
     rows = []
     for nb in HIST_NBS:
-        ids = r.integers(0, nb, HIST_N).astype(np.int32)
-        out = r.random(HIST_N) < 0.05  # out of range on both sides
-        ids[out] = np.where(r.random(out.sum()) < 0.5, -1 - r.integers(0, nb, out.sum()),
-                            nb + r.integers(0, nb, out.sum()))  # fmt: skip
-        valid = r.random(HIST_N) < 0.7
+        ids, valid = _hist_data(r, nb)
         ids_d = torch.as_tensor(ids, device=dev)
         valid_d = torch.as_tensor(valid, device=dev)
         want = bh.bucket_hist_ref(ids_d, valid_d, num_buckets=nb)
@@ -399,13 +462,21 @@ def phase_hist(dev):
         in_range = (ids >= 0) & (ids < nb)
         if int(got.sum()) != int((valid & in_range).sum()):
             raise AssertionError(f"bucket_hist at NB={nb} does not count the valid in-range ids")
-        shared = nb <= bh.SHARED_BINS_MAX
+        # no path of either tree launches a thread block cluster
         scratch = torch.zeros(nb, dtype=torch.int32, device=dev)
-        launch = lambda: bh._launch(ids_d, valid_d, scratch, shared=shared)
+        if planned:
+            taken = dict(cluster=1, **bh.plan(HIST_N, nb, bh.device_info(dev))._asdict())
+            launch = lambda: bh._launch(ids_d, valid_d, scratch)
+        else:
+            shared = nb <= bh.SHARED_BINS_MAX
+            taken = dict(path="shared" if shared else "global", cluster=1, grid=None)
+            launch = lambda: bh._launch(ids_d, valid_d, scratch, shared=shared)
         kernel_ms, host_s = queued_ms(launch, 20)
-        name = "bucket_hist_shared" if shared else "bucket_hist_global"
-        prof_ms = profiled_ms(launch, 20, name)
-        call_ms = cuda_ms(lambda: bh.bucket_hist_kernel(ids_d, valid_d, num_buckets=nb), 20)
+        prof_ms = profiled_ms(launch, 20, "bucket_hist")
+        # the whole wrapper call is host-bound: the least of five runs of 100
+        call = lambda: bh.bucket_hist_kernel(ids_d, valid_d, num_buckets=nb)
+        call_ms = min(cuda_ms(call, 100) for _ in range(5))
+        host_us, host_profile = host_cost(call, profile=nb == HIST_NBS[0])
         plain_ms = cuda_ms(lambda: bh.bucket_hist_ref(ids_d, valid_d, num_buckets=nb), 2)
         # the library yardstick: one bincount over ids drawn in range, the
         # valid flags as float weights (it does no range filter, no int cast)
@@ -414,13 +485,70 @@ def phase_hist(dev):
         library_ms = cuda_ms(lambda: torch.bincount(lib_ids, weights=lib_w, minlength=nb), 20)
         nbytes = HIST_N * 4 + HIST_N * 1 + nb * 4
         row = dict(
-            num_buckets=nb, path="shared" if shared else "global", walks=HIST_N,
+            num_buckets=nb, **taken, walks=HIST_N,
             counted=int(got.sum()), bitwise_equal=True, max_abs_err=err, kernel_ms=kernel_ms,
-            profiler_ms=prof_ms, call_ms=call_ms, queue_host_s=host_s, plain_ms=plain_ms,
+            profiler_ms=prof_ms, call_ms=call_ms, host_us=host_us, host_profile=host_profile,
+            queue_host_s=host_s, plain_ms=plain_ms,
             library_ms=library_ms, bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            launch_floor_ms=floor_ms,
         )  # fmt: skip
         rows.append(row)
         log(f"[hist] {json.dumps(row)}")
+    return rows
+
+
+def _sweep_plans(bh, nb, card):
+    """The plans the sweep times at ``nb``: the plan's own, then each path
+    over block sizes, copies and bin ranges around it, every block of a
+    plan resident at once (``bucket_hist.blocks_per_sm``)."""
+    n4, sms = HIST_N // 4, card.sms
+    seen = {bh.plan(HIST_N, nb, card)}
+    for threads in (256, 512, 1024):
+        for per_sm in (1, 2, 4):
+            grid = min(sms * per_sm, -(-n4 // threads))
+            if per_sm <= bh.blocks_per_sm(card, threads, nb * 4):
+                seen.add(bh.Plan("block", 1, grid, threads))
+    for ranges in range(2, 7):
+        smem = -(-nb // ranges) * 4
+        for copies in {sms // ranges, 2 * sms // ranges}:
+            if ranges <= nb and -(-copies * ranges // sms) <= bh.blocks_per_sm(card, 1024, smem):
+                seen.add(bh.Plan("range", ranges, copies * ranges, 1024))
+    for per_sm in (4, 8):
+        seen.add(bh.Plan("global", 1, min(sms * per_sm, -(-n4 // 256)), 256))
+    return sorted(seen)
+
+
+def phase_hist_sweep(dev):
+    """The measurements behind ``bucket_hist.plan``: every plan of
+    :func:`_sweep_plans` at 1,048,576 walks, bitwise against the plain
+    version, timed as phase 3b times the kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import bucket_hist as bh
+
+    card = bh.device_info(dev)
+    # the floor of any launch timed this way: a one-thread kernel
+    floor_ms, _ = queued_ms(lambda: torch.cuda._sleep(1), 20)
+    log(f"[sweep] floor_ms={floor_ms}")
+    r = np.random.default_rng(3)
+    rows = [dict(floor_ms=floor_ms)]
+    for nb in HIST_SWEEP_NBS:
+        ids, valid = _hist_data(r, nb)
+        ids_d = torch.as_tensor(ids, device=dev)
+        valid_d = torch.as_tensor(valid, device=dev)
+        want = bh.bucket_hist_ref(ids_d, valid_d, num_buckets=nb)
+        chosen = bh.plan(HIST_N, nb, card)
+        for p in _sweep_plans(bh, nb, card):
+            out = torch.zeros(nb, dtype=torch.int32, device=dev)
+            bh._launch(ids_d, valid_d, out, forced=p)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"bucket_hist plan {p} != plain version at NB={nb}")
+            kernel_ms, _ = queued_ms(lambda: bh._launch(ids_d, valid_d, out, forced=p), 20)
+            row = dict(num_buckets=nb, **p._asdict(), chosen=p == chosen, kernel_ms=kernel_ms)
+            rows.append(row)
+            log(f"[sweep] {json.dumps(row)}")
     return rows
 
 
@@ -585,9 +713,12 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernels-only", action="store_true", help="phases 1-3 only")
+    ap.add_argument("--kernels-only", action="store_true", help="phases 1-3b only")
+    ap.add_argument("--hist-sweep", action="store_true",
+                    help="phases 1-2, then every bucket_hist plan of the sweep")  # fmt: skip
     ap.add_argument("--src", default=str(ROOT), help="checkout whose src/ holds the port")
-    ap.add_argument("--out", default="kernels", help="--kernels-only: chiprun_out/OUT.json")
+    ap.add_argument("--out", default="kernels",
+                    help="--kernels-only, --hist-sweep: the rows' file, OUT.json")  # fmt: skip
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU fallback", file=sys.stderr)
@@ -611,15 +742,24 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    rows = phase_kernels(dev)
-    if args.kernels_only:
+    if args.hist_sweep:
         OUT.mkdir(exist_ok=True)
         (OUT / f"{args.out}.json").write_text(json.dumps(dict(
-            card=card, src=args.src, build_s=build_s, variants=rows, total_s=elapsed(),
+            card=card, src=args.src, build_s=build_s, sweep=phase_hist_sweep(dev),
+            total_s=elapsed(),
         ), indent=1))  # fmt: skip
         log(f"[done] {elapsed():.1f}s")
         return 0
+    rows = phase_kernels(dev)
     hist = phase_hist(dev)
+    if args.kernels_only:
+        OUT.mkdir(exist_ok=True)
+        (OUT / f"{args.out}.json").write_text(json.dumps(dict(
+            card=card, src=args.src, build_s=build_s, variants=rows, bucket_hist=hist,
+            total_s=elapsed(),
+        ), indent=1))  # fmt: skip
+        log(f"[done] {elapsed():.1f}s")
+        return 0
     tier = phase_tier(dev)
     whole = phase_whole_run(dev)
     engines = phase_other_engines(dev)

@@ -54,10 +54,17 @@ _LAZY = {
     "SOGWEngine": "repro_torch.engines",
     "WalkResult": "repro_torch.engines",
     "ResidentPair": "repro_torch.engines",
+    "pair_advance_ref": "repro_torch.engines",
     "BlockStore": "repro_torch.io",
+    "BlockFileError": "repro_torch.io",
     "DiskBlockedGraph": "repro_torch.io",
     "write_block_file": "repro_torch.io",
     "write_and_open": "repro_torch.io",
+    "DiskWalkPool": "repro_torch.io",
+    "MemoryWalkPool": "repro_torch.io",
+    "ShardedWalkPool": "repro_torch.io",
+    "WalkPool": "repro_torch.io",
+    "make_walk_pool": "repro_torch.io",
 }
 
 

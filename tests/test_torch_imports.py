@@ -3,6 +3,8 @@
 * Importing every module of ``repro_torch`` (in a fresh interpreter)
   leaves ``jax`` and every ``repro`` module out of ``sys.modules``, and
   builds nothing.
+* The port's ``core``, ``engines``, ``kernels`` and ``core.engine`` export
+  the JAX package's names, but for the documented differences.
 * An engine built with the default device raises a clear error on a host
   without a CUDA device instead of falling back to the CPU.
 """
@@ -53,6 +55,7 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
         "repro_torch.launch.walk",
         "repro_torch.convert",
         "repro_torch.core.sampling",
+        "repro_torch.core.engine",
         "repro_torch.io.blockfile",
     ):
         assert m in res["modules"]
@@ -111,3 +114,58 @@ def test_kernel_wrapper_rejects_other_devices():
             has_alias=False,
             max_len=4,
         )
+
+
+#: (package, names only the JAX package exports, names only the port exports):
+#: the JAX package's jitted pair advance (``advance_pair``,
+#: ``pair_advance_impl``) is the port's ``pair_advance_ref``; ``WALK_TILE``
+#: and ``pair_advance_kernel`` are Pallas; ``resolve_device``, ``BlockView``
+#: and ``ResidentPair`` are exported by the port alone
+_EXPORT_DIFFS = [
+    ("core", {"advance_pair"}, {"pair_advance_ref", "BlockView", "ResidentPair"}),
+    ("engines", {"advance_pair", "pair_advance_impl"}, {"pair_advance_ref", "resolve_device"}),
+    ("kernels", {"WALK_TILE", "pair_advance_kernel"}, set()),
+    ("core.engine", {"advance_pair", "pair_advance_impl"}, {"pair_advance_ref"}),
+]
+
+_EXPORTS_PROBE = r"""
+import importlib, json, sys
+out = {}
+for pkg in sys.argv[1:]:
+    jax_mod = importlib.import_module("repro." + pkg)
+    port_mod = importlib.import_module("repro_torch." + pkg)
+    out[pkg] = [sorted(jax_mod.__all__), sorted(port_mod.__all__)]
+    for name in port_mod.__all__:
+        getattr(port_mod, name)  # every exported name resolves
+print(json.dumps(out))
+"""
+
+
+def test_port_exports_match_jax_but_for_documented_differences():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
+    pkgs = [p for p, _, _ in _EXPORT_DIFFS]
+    out = subprocess.run(
+        [sys.executable, "-c", _EXPORTS_PROBE, *pkgs],
+        capture_output=True, text=True, env=env, check=True,
+    ).stdout  # fmt: skip
+    import json
+
+    res = json.loads(out.strip().splitlines()[-1])
+    for pkg, jax_only, port_only in _EXPORT_DIFFS:
+        jax_names, port_names = map(set, res[pkg])
+        assert jax_names - port_names == jax_only, pkg
+        assert port_names - jax_names == port_only, pkg
+
+
+def test_core_reexports_the_storage_layer_and_the_engine_shim():
+    import repro_torch.core as core
+    import repro_torch.io as io
+    from repro_torch.core import engine
+    from repro_torch.engines import ResidentPair
+
+    for name in ("BlockFileError", "DiskWalkPool", "MemoryWalkPool", "ShardedWalkPool",
+                 "WalkPool", "make_walk_pool"):  # fmt: skip
+        assert getattr(core, name) is getattr(io, name)
+        assert name in core.__all__ and name in dir(core)
+    assert engine._DeviceBlockPair is ResidentPair
+    assert engine.BiBlockEngine is core.BiBlockEngine

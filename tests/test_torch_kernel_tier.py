@@ -3,7 +3,8 @@
 * ``bucket_hist_ref`` and the wrapper's CPU path against
   ``repro.kernels.bucket_hist_kernel(interpret=True)`` (the Pallas kernel
   in interpret mode) and ``repro.kernels.bucket_hist_ref``, with ids out of
-  range on both sides; plus the wrapper's ``ValueError`` / ``TypeError``.
+  range on both sides; plus the wrapper's ``ValueError`` / ``TypeError``,
+  and the CUDA kernel's host plan at each of its limits.
 * ``node2vec_step`` / ``alias_step`` (both ``use_kernel`` paths) and
   ``node2vec_step_ref`` against their JAX twins on the pairs of
   ``tests/test_kernels.py``, weighted alias tables included.
@@ -93,6 +94,123 @@ def test_bucket_hist_errors_and_empty():
     meta = torch.zeros(1024, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         bucket_hist_kernel(meta, meta.bool(), num_buckets=4)
+
+
+def _card(sms, smem_block, smem_sm, threads_sm):
+    from repro_torch.kernels.bucket_hist import Card
+
+    return Card(sms, smem_block, smem_sm, 1024, threads_sm)
+
+
+#: (card, walks, bins) -> (path, ranges, grid) of the bucket histogram's
+#: host plan on either side of each of its limits.  Cards (SMs, opt-in
+#: shared memory per block, shared memory per SM, threads per SM; 1,024
+#: bytes reserved per block on each): an H100 SXM, an H100 PCIe, an A100
+#: (164 KB per SM) and an A10 (100 KB and 1,536 threads per SM).
+_H100 = (132, 232448, 233472, 2048)
+_PCIE = (114, 232448, 233472, 2048)
+_A100 = (108, 166912, 167936, 2048)
+_A10 = (72, 101376, 102400, 1536)
+_PLANS = [
+    # two blocks per SM while a copy counts >= 14 lanes per bin
+    (_H100, 1 << 20, 1, ("block", 1, 256)),
+    (_H100, 1 << 20, 283, ("block", 1, 256)),
+    (_H100, 1 << 20, 284, ("block", 1, 132)),
+    (_PCIE, 1 << 20, 328, ("block", 1, 228)),
+    (_PCIE, 1 << 20, 329, ("block", 1, 114)),
+    # ... and while two fit an SM: its shared memory, 1 KB reserve each
+    (_H100, 1 << 27, 28928, ("block", 1, 264)),
+    (_H100, 1 << 27, 28929, ("block", 1, 132)),
+    (_A100, 1 << 27, 20736, ("block", 1, 216)),
+    (_A100, 1 << 27, 20737, ("block", 1, 108)),
+    # ... and its threads: two blocks of 1,024 never fit 1,536
+    (_A10, 1 << 20, 16, ("block", 1, 72)),
+    # ranges by lanes per bin: >= 1,024 one, >= 56 two, >= 13 four, else
+    # global
+    (_H100, 1 << 20, 1024, ("block", 1, 132)),
+    (_H100, 1 << 20, 1025, ("range", 2, 132)),
+    (_PCIE, 1 << 20, 1025, ("range", 2, 114)),
+    (_H100, 1 << 20, 2049, ("range", 2, 132)),
+    (_H100, 1 << 20, 18724, ("range", 2, 132)),
+    (_H100, 1 << 20, 18725, ("range", 4, 132)),
+    (_H100, 1 << 20, 29127, ("range", 4, 132)),
+    (_H100, 1 << 20, 29128, ("range", 4, 132)),
+    (_H100, 1 << 20, 80659, ("range", 4, 132)),
+    (_H100, 1 << 20, 80660, ("global", 1, 528)),
+    (_A100, 1 << 20, 80659, ("range", 4, 108)),
+    (_A100, 1 << 20, 80660, ("global", 1, 432)),
+    # ranges by shared memory: the fewest of one, two or four that hold
+    # the bins
+    (_H100, 1 << 27, 58112, ("block", 1, 132)),
+    (_H100, 1 << 27, 58113, ("range", 2, 132)),
+    (_H100, 1 << 27, 116224, ("range", 2, 132)),
+    (_H100, 1 << 27, 116225, ("range", 4, 132)),
+    (_H100, 1 << 27, 174336, ("range", 4, 132)),
+    (_H100, 1 << 27, 174337, ("range", 4, 132)),
+    (_H100, 1 << 27, 232448, ("range", 4, 132)),
+    (_H100, 1 << 27, 232449, ("global", 1, 528)),
+    (_A100, 1 << 27, 41728, ("block", 1, 108)),  # lanes allow two; one fits
+    (_A100, 1 << 27, 41729, ("range", 2, 108)),
+    (_A100, 1 << 27, 83456, ("range", 2, 108)),
+    (_A100, 1 << 27, 83457, ("range", 4, 108)),
+    (_A100, 1 << 27, 166912, ("range", 4, 108)),
+    (_A100, 1 << 27, 166913, ("global", 1, 432)),
+    (_A10, 1 << 26, 25344, ("block", 1, 72)),
+    (_A10, 1 << 26, 25345, ("range", 2, 72)),
+    (_A10, 1 << 26, 101377, ("global", 1, 288)),
+    # few walks: the grid shrinks to the lanes there are
+    (_H100, 4096, 16, ("range", 2, 2)),
+    (_H100, 1 << 17, 300, ("range", 2, 64)),
+    (_H100, 1024, 1, ("block", 1, 1)),
+    (_H100, 1024, 128, ("global", 1, 1)),
+]
+
+
+@pytest.mark.parametrize("card,n,nb,want", _PLANS)
+def test_bucket_hist_plan_at_its_limits(card, n, nb, want):
+    from repro_torch.kernels.bucket_hist import blocks_per_sm, plan, shared_capacity
+
+    card = _card(*card)
+    p = plan(n, nb, card)
+    assert (p.path, p.ranges, p.grid) == want
+    smem = 0 if p.path == "global" else -(-nb // p.ranges) * 4
+    assert p.grid % p.ranges == 0 and smem <= card.smem_block
+    assert -(-p.grid // card.sms) <= blocks_per_sm(card, p.threads, smem)  # one wave
+    if p.path != "global":
+        assert p.grid // p.ranges * p.threads <= max(n // 4, p.threads)  # every copy has lanes
+    if nb > shared_capacity(card.smem_block):
+        assert p.path == "global"
+
+
+@pytest.mark.parametrize("card,threads,smem,want", [
+    (_H100, 1024, 115712, 2), (_H100, 1024, 115716, 1), (_H100, 1024, 232448, 1),
+    (_H100, 1024, 232452, 0), (_H100, 256, 0, 8), (_A10, 1024, 4, 1), (_A10, 512, 4, 3),
+])  # fmt: skip
+def test_bucket_hist_blocks_per_sm(card, threads, smem, want):
+    from repro_torch.kernels.bucket_hist import blocks_per_sm
+
+    assert blocks_per_sm(_card(*card), threads, smem) == want
+
+
+def test_bucket_hist_plan_rejects_bad_shapes():
+    from repro_torch.kernels.bucket_hist import plan
+
+    for n, nb in ((0, 4), (1026, 4), (1024, 0)):
+        with pytest.raises(ValueError, match="plan needs"):
+            plan(n, nb, _card(*_H100))
+
+
+def test_bucket_hist_refuses_unaligned_cuda_inputs():
+    """The check the wrapper makes before a launch, on a host tensor's
+    addresses: 16 bytes for ids, 4 for the flags."""
+    from repro_torch.kernels.bucket_hist import _check_aligned
+
+    ids = torch.zeros(2048, dtype=torch.int32)
+    valid = torch.zeros(2048, dtype=torch.bool)
+    _check_aligned(ids[4:1028], valid[4:1028])
+    for a, b in ((ids[1:1025], valid[:1024]), (ids[:1024], valid[1:1025])):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            _check_aligned(a, b)
 
 
 # ---- single-hop kernel tier -------------------------------------------------

@@ -6,7 +6,8 @@ skips on a host without a CUDA device.  Run it there with
     python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerance: bitwise, on all six outputs of the pair advance (full sweep
-and ``max_hops``), on the bucket histogram's counts (both paths), on
+and ``max_hops``), on the bucket histogram's counts (every path, at bucket
+counts on both sides of each path's limit), on
 ``node2vec_step`` / ``alias_step`` against the dense oracle, and on whole
 runs of every engine, kernel against plain version.
 
@@ -308,35 +309,82 @@ def _hist_inputs(n, nb, dev, seed=0):
     return torch.as_tensor(ids, device=dev), torch.as_tensor(valid, device=dev)
 
 
+#: the path the host plan takes on an H100 (132 SMs, 232,448 bytes of
+#: shared memory per block) at 1,048,576 walks, the main path's count: both
+#: sides of each of its limits, and past the shared paths' capacity (4
+#: ranges of 58,112 bins)
+_H100_PATHS = {
+    1: "block", 16: "block", 248: "block", 249: "block", 283: "block", 284: "block",
+    300: "block", 512: "block", 513: "block", 682: "block", 683: "block", 1024: "block",
+    1025: "range", 2048: "range", 2049: "range", 4096: "range", 18724: "range", 18725: "range",
+    29127: "range", 29128: "range", 58112: "range", 58113: "range", 65536: "range", 80659: "range",
+    80660: "global", 104857: "global", 104858: "global", 232449: "global", 464897: "global",
+}  # fmt: skip
+#: the bin ranges of the range path there
+_H100_RANGES = {
+    1025: 2, 2048: 2, 2049: 2, 4096: 2, 18724: 2, 18725: 4, 29127: 4, 29128: 4, 58112: 4,
+    58113: 4, 65536: 4, 80659: 4,
+}  # fmt: skip
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("nb", [1, 16, 4096, 65536])
-@pytest.mark.parametrize("n", [1024, 1 << 17])
+@pytest.mark.parametrize("nb", sorted(_H100_PATHS))
+@pytest.mark.parametrize("n", [1024, 1 << 17, 1 << 20])
 def test_bucket_hist_matches_plain_version(cuda, n, nb):
-    from repro_torch.kernels.bucket_hist import (
-        SHARED_BINS_MAX, bucket_hist_kernel, bucket_hist_ref,
-    )  # fmt: skip
+    from repro_torch.kernels import bucket_hist as bh
 
     ids, valid = _hist_inputs(n, nb, cuda)
-    want = bucket_hist_ref(ids, valid, num_buckets=nb)
-    before = bucket_hist_kernel.launches
-    got = bucket_hist_kernel(ids, valid, num_buckets=nb)
+    want = bh.bucket_hist_ref(ids, valid, num_buckets=nb)
+    before = bh.bucket_hist_kernel.launches
+    got = bh.bucket_hist_kernel(ids, valid, num_buckets=nb)
     torch.cuda.synchronize()
-    assert bucket_hist_kernel.launches == before + 1
+    assert bh.bucket_hist_kernel.launches == before + 1
     assert got.dtype == torch.int32 and got.device == ids.device
     assert torch.equal(got, want)
-    assert (nb <= SHARED_BINS_MAX) == (nb < 65536)  # both paths are covered
+    card = bh.device_info(cuda)
+    if (card.sms, card.smem_block, card.smem_sm) == (132, 232448, 233472) and n == 1 << 20:
+        assert bh.plan(n, nb, card).path == _H100_PATHS[nb]
+        assert bh.plan(n, nb, card).ranges == _H100_RANGES.get(nb, 1)
+
+
+def _forced(path, nb):
+    """A plan for ``path`` at ``nb`` bins, whatever the plan would choose."""
+    from repro_torch.kernels.bucket_hist import Plan
+
+    if path == "block":
+        return Plan("block", 1, 8, 1024)
+    if path == "range":  # three ranges: the last one shorter than the others
+        return Plan("range", 3, 12, 1024)
+    return Plan("global", 1, 64, 256)
+
+
+_FORCED_PATHS = ["block", "range", "global"]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shared", [False, True])
-def test_bucket_hist_both_paths_at_small_nb(cuda, shared):
+@pytest.mark.parametrize("path", _FORCED_PATHS)
+def test_bucket_hist_both_paths_at_small_nb(cuda, path):
     from repro_torch.kernels import bucket_hist as bh
 
     ids, valid = _hist_inputs(1 << 16, 300, cuda, seed=1)
     out = torch.zeros(300, dtype=torch.int32, device=cuda)
-    bh._launch(ids, valid, out, shared=shared)
+    assert bh._launch(ids, valid, out, forced=_forced(path, 300)).path == path
     torch.cuda.synchronize()
     assert torch.equal(out, bh.bucket_hist_ref(ids, valid, num_buckets=300))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", _FORCED_PATHS)
+def test_bucket_hist_counts_nothing_invalid_or_out_of_range(cuda, path):
+    from repro_torch.kernels import bucket_hist as bh
+
+    ids, valid = _hist_inputs(1 << 14, 40, cuda, seed=2)
+    outside = torch.where(ids % 2 == 0, -1 - ids.abs(), 40 + ids.abs())  # both sides
+    for ids_, valid_ in ((ids, torch.zeros_like(valid)), (outside, valid)):
+        out = torch.full((40,), 7, dtype=torch.int32, device=cuda)
+        bh._launch(ids_, valid_, out, forced=_forced(path, 40), zero=True)
+        torch.cuda.synchronize()
+        assert out.tolist() == [0] * 40
 
 
 @pytest.mark.gpu
@@ -354,8 +402,16 @@ def test_bucket_hist_errors_and_empty(cuda):
         bh.bucket_hist_kernel(ids, valid.cpu(), num_buckets=8)
     empty = bh.bucket_hist_kernel(ids[:0], valid[:0], num_buckets=8)
     assert empty.device == ids.device and empty.tolist() == [0] * 8
-    with pytest.raises(RuntimeError, match="CUDA error"):  # too many bins for shared memory
-        bh._launch(ids, valid, torch.zeros(1 << 17, dtype=torch.int32, device=cuda), shared=True)
+    # the kernel reads 16 bytes of ids and 4 of flags at a time
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        bh.bucket_hist_kernel(ids[1:1025], valid[:1024], num_buckets=8)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        bh.bucket_hist_kernel(ids[:1024], valid[1:1025], num_buckets=8)
+    # a plan with more bins than a block's shared memory holds is refused
+    # by the launch
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bh._launch(ids, valid, torch.zeros(1 << 17, dtype=torch.int32, device=cuda),
+                   forced=_forced("block", 1 << 17))  # fmt: skip
 
 
 # ---- the single-hop kernel tier --------------------------------------------
