@@ -45,7 +45,20 @@ Phases (each raises on failure, so the script exits non-zero):
    ``pb`` and ``sgsc`` (each held to that oracle), then the disk backends
    while under 420 s; each run sets the launch
    counts to 0 before and reads them after, and must launch the kernel once
-   per advance.
+   per advance;
+6. serving — ``repro_torch.serve.WalkQueryServer`` on the card: (6a) on the
+   phase-4 graph, 256 skewed queries in batches of 64 with 2 hot blocks,
+   ``advance_impl="cuda"`` against ``"torch"``: equal answers and
+   deterministic charges; (6b) on the main path's graph, 2,048 PPR queries
+   (p=4, q=0.25, length 20, decay 0.85, 32 walks each; 85% from block 0)
+   in two admission batches of 1,024 queries (32,768 walks), served with 2
+   hot blocks and with pure LRU: equal answers, fewer block loads with
+   pinned hits, each batch's endpoint CRC equal to a direct bi-block run's,
+   every query's walks all retired; queries/s, seconds per batch and
+   latency percentiles per server; (6c) ``python -m
+   repro_torch.launch.serve`` (in-process) at its defaults.  Each served
+   run sets the launch counts to 0 before and reads them after, and must
+   launch the kernel once per advance.
 
 There is no CPU fallback.
 
@@ -86,6 +99,12 @@ VERTICES, AVG_DEGREE, BLOCKS = 1_000_000, 16, 16
 MAIN_LEN, MAIN_P, MAIN_Q = 20, 4.0, 0.25
 #: the whole-run comparison's graph (phase 4)
 WHOLE_VERTICES, WHOLE_BLOCKS = 20_000, 4
+#: the serving mix (phase 6b): a burst of PPR queries, 85% of them from
+#: block 0, admitted 1,024 at a time (two batches of 32,768 walks)
+SERVE_QUERIES, SERVE_BATCH, SERVE_SKEW = 2048, 1024, 0.85
+SERVE_CONFIG = dict(p=4.0, q=0.25, length=20, decay=0.85, samples=32)
+#: ``IOStats.as_dict`` fields read off the wall clock or thread timing
+TIMING_FIELDS = ("exec_time", "sim_wall_time", "writer_queue_peak")
 #: the bucket histogram's shapes (phase 3b): the main path's 1M walks,
 #: padded to the tile, over its 16 blocks and two larger bucket counts
 HIST_N, HIST_NBS = 1_048_576, (16, 4096, 65536)
@@ -707,6 +726,162 @@ def phase_main(engines, extra=(), oracle_counts=None):
     return infos, oracle_counts
 
 
+def _charges(stats):
+    return {k: v for k, v in stats.as_dict().items() if k not in TIMING_FIELDS}
+
+
+def _serve(bg, sources, config, **kw):
+    """One server over ``bg``: submit ``sources``, then flush with the launch
+    counts set to 0 just before and read just after.  Returns ``(server,
+    answers, info)``."""
+    import torch
+
+    from repro_torch.kernels.bucket_hist import bucket_hist_kernel
+    from repro_torch.kernels.pair_advance import fused_advance_pair
+    from repro_torch.serve import WalkQueryServer
+
+    with WalkQueryServer(bg, seed=0, **kw) as server:
+        for s in sources:
+            server.submit(s, config)
+        torch.cuda.synchronize()
+        fused_advance_pair.launches = 0
+        bucket_hist_kernel.launches = 0
+        t0 = time.perf_counter()
+        answers = server.flush()
+        torch.cuda.synchronize()
+        flush_s = time.perf_counter() - t0
+        launches, hist_launches = fused_advance_pair.launches, bucket_hist_kernel.launches
+    s, lat = server.stats, server.latency_summary()
+    info = dict(
+        queries=len(answers), batches=server.batches_served, flush_s=flush_s,
+        queries_per_s=len(answers) / flush_s, s_per_batch=flush_s / server.batches_served,
+        p50_ms=lat["p50"] * 1e3, p95_ms=lat["p95"] * 1e3, p99_ms=lat["p99"] * 1e3,
+        exec_s=s.exec_time, exec_share=s.exec_time / flush_s,
+        advance_calls=server.advance_calls, launches=launches,
+        bucket_hist_launches=hist_launches, block_ios=s.block_ios,
+        hot_pinned_blocks=s.hot_pinned_blocks, pinned_block_hits=s.pinned_block_hits,
+        pinned_bytes_saved=s.pinned_bytes_saved, ondemand_ios=s.ondemand_ios,
+        steps=s.steps_sampled, **{k: kw[k] for k in ("hot_blocks", "advance_impl") if k in kw},
+    )  # fmt: skip
+    if kw.get("advance_impl", "cuda") == "cuda":
+        if launches == 0 or launches != server.advance_calls:
+            raise AssertionError(f"server: {launches} launches for {server.advance_calls} advances")
+    elif launches != 0:
+        raise AssertionError(f"server on the plain version launched the kernel {launches} times")
+    for a in answers:
+        if int(a.counts.sum()) != a.num_walks:
+            raise AssertionError(f"query {a.qid}: {int(a.counts.sum())} of {a.num_walks} walks")
+    return server, answers, info
+
+
+def _same_answers(xs, ys) -> bool:
+    import numpy as np
+
+    return len(xs) == len(ys) and all(
+        (a.qid, a.source, a.num_walks) == (b.qid, b.source, b.num_walks)
+        and np.array_equal(a.vertices, b.vertices) and np.array_equal(a.counts, b.counts)
+        for a, b in zip(xs, ys)
+    )  # fmt: skip
+
+
+def phase_serve(dev):
+    """Phase 6: the query server on the card (6a kernel against plain
+    version, 6b the main path's graph, hot set against LRU and served
+    against direct, 6c the launcher)."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import erdos_renyi, partition_into_n_blocks
+    from repro_torch.engines import BiBlockEngine
+    from repro_torch.kernels.bucket_hist import bucket_hist_kernel
+    from repro_torch.kernels.pair_advance import fused_advance_pair
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.serve import QueryConfig
+
+    config = QueryConfig(**SERVE_CONFIG)
+    mix = lambda bg, n: serve_launcher.skewed_sources(bg, n, SERVE_SKEW, np.random.default_rng(7))
+    out = {}
+    # 6a: kernel against plain version, both on the card
+    bg = _whole_graph()
+    sources = mix(bg, 256)
+    runs = {impl: _serve(bg, sources, config, max_batch=64, hot_blocks=2, device=dev,
+                         advance_impl=impl) for impl in ("cuda", "torch")}  # fmt: skip
+    (sc, ac, ic), (st, at, it) = runs["cuda"], runs["torch"]
+    log(f"[serve] 6a cuda {json.dumps(ic)}")
+    log(f"[serve] 6a torch {json.dumps(it)}")
+    if not _same_answers(ac, at):
+        raise AssertionError("6a: cuda and torch servers answer differently")
+    if _charges(sc.stats) != _charges(st.stats) or sc.advance_calls != st.advance_calls:
+        raise AssertionError("6a: cuda and torch servers charge differently")
+    out["6a"] = dict(cuda=ic, torch=it)
+
+    # 6b: the main path's graph, hot set against pure LRU
+    t0 = time.perf_counter()
+    g = erdos_renyi(VERTICES, VERTICES * AVG_DEGREE // 2, seed=0)
+    bg = partition_into_n_blocks(g, BLOCKS)
+    log(f"[serve] 6b graph built in {time.perf_counter() - t0:.1f}s: {bg.describe()}")
+    sources = mix(bg, SERVE_QUERIES)
+    kw = dict(max_batch=SERVE_BATCH, device=dev, advance_impl="cuda")
+    hot, hot_ans, hot_info = _serve(bg, sources, config, hot_blocks=2, **kw)
+    log(f"[serve] 6b hot-set {json.dumps(hot_info)}")
+    lru, lru_ans, lru_info = _serve(bg, sources, config, hot_blocks=0, **kw)
+    log(f"[serve] 6b lru {json.dumps(lru_info)}")
+    if not _same_answers(hot_ans, lru_ans):
+        raise AssertionError("6b: pinning changed an answer")
+    if hot.stats.pinned_block_hits == 0 or hot.stats.block_ios >= lru.stats.block_ios:
+        raise AssertionError(f"6b: pinning saved no block loads ({hot.stats.block_ios} >= "
+                             f"{lru.stats.block_ios}, {hot.stats.pinned_block_hits} hits)")  # fmt: skip
+    crcs = []
+    V = bg.num_vertices
+    for k in range(hot.batches_served):
+        batch = hot_ans[k * SERVE_BATCH : (k + 1) * SERVE_BATCH]
+        served = np.zeros(V, np.int64)
+        for a in batch:
+            served[a.vertices] += a.counts
+        before = fused_advance_pair.launches
+        t1 = time.perf_counter()
+        direct = BiBlockEngine(
+            bg, config.task(hot.batch_seed(k)), device=dev, advance_impl="cuda",
+            initial_walks=np.repeat([a.source for a in batch], config.samples),
+            async_pipeline=True,
+        ).run()  # fmt: skip
+        direct_s = time.perf_counter() - t1
+        if fused_advance_pair.launches - before != direct.advance_calls:
+            raise AssertionError(f"6b direct run {k}: launches != advance calls")
+        crc_s = zlib.crc32(np.ascontiguousarray(served).tobytes())
+        crc_d = zlib.crc32(np.ascontiguousarray(direct.endpoint_counts).tobytes())
+        crcs.append(dict(batch=k, seed=hot.batch_seed(k), walks=direct.num_walks,
+                         crc_served=crc_s, crc_direct=crc_d, direct_s=direct_s,
+                         direct_advance_calls=direct.advance_calls))  # fmt: skip
+        log(f"[serve] 6b batch {json.dumps(crcs[-1])}")
+        if crc_s != crc_d:
+            raise AssertionError(f"6b: served batch {k} crc {crc_s:#010x} != direct {crc_d:#010x}")
+    out["6b"] = dict(config=SERVE_CONFIG, queries=SERVE_QUERIES, max_batch=SERVE_BATCH,
+                     skew=SERVE_SKEW, hot=hot_info, lru=lru_info, crc=crcs)  # fmt: skip
+
+    # 6c: the launcher at its defaults
+    torch.cuda.synchronize()
+    fused_advance_pair.launches = 0
+    bucket_hist_kernel.launches = 0
+    t0 = time.perf_counter()
+    answers, server = serve_launcher.main([])
+    torch.cuda.synchronize()
+    launcher_s = time.perf_counter() - t0
+    launches, hist_launches = fused_advance_pair.launches, bucket_hist_kernel.launches
+    if launches == 0 or launches != server.advance_calls or len(answers) != 96:
+        raise AssertionError(f"6c: {launches} launches for {server.advance_calls} advances, "
+                             f"{len(answers)} answers")  # fmt: skip
+    if any(int(a.counts.sum()) != a.num_walks for a in answers):
+        raise AssertionError("6c: a query's walks were not all retired")
+    out["6c"] = dict(run_s=launcher_s, batches=server.batches_served,
+                     advance_calls=server.advance_calls, launches=launches,
+                     bucket_hist_launches=hist_launches, block_ios=server.stats.block_ios)  # fmt: skip
+    log(f"[serve] 6c launcher {json.dumps(out['6c'])}")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -774,20 +949,32 @@ def main(argv=None) -> int:
         phases["biblock disk"], _ = phase_main(
             ["biblock"], extra=["--graph-backend", "disk", "--pool", "disk"]
         )
+    serving = phase_serve(dev)
+    # ``launches`` counts the main paths only: the walk launcher and the
+    # full-size hot-set server; the LRU server and the launcher at its small
+    # defaults are listed beside them in ``launches_by_path``
+    def by_path(key):
+        main = {"walk biblock+oracle": main_infos[0][key], "serve hot-set": serving["6b"]["hot"][key]}
+        other = {"serve lru": serving["6b"]["lru"][key], "serve launcher": serving["6c"][key]}
+        return sum(main.values()), {**main, **other}
+
+    pair_launches, pair_by_path = by_path("launches")
+    hist_launches, hist_by_path = by_path("bucket_hist_launches")
 
     head = next(r for r in rows if (r["case"], r["order"], r["has_alias"], r["record"])
                 == ("pair", 2, False, False))  # fmt: skip
     hist16 = next(r for r in hist if r["num_buckets"] == 16)
     kernels = [dict(
         name="pair_advance", route="cuda", source="src/repro_torch/kernels/csrc/pair_advance.cu",
-        replaces="src/repro/kernels/pair_advance.py:74", launches=main_infos[0]["launches"],
+        replaces="src/repro/kernels/pair_advance.py:74",
+        launches=pair_launches, launches_by_path=pair_by_path,
         max_abs_err=max(r["max_abs_err"] for r in rows), ms=head["kernel_ms"],
         kernel_ms=head["kernel_ms"],
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by="bytes", library_ms=None,
     ), dict(
         name="bucket_hist", route="cuda", source="src/repro_torch/kernels/csrc/bucket_hist.cu",
         replaces="src/repro/kernels/bucket_hist.py:26",
-        launches=main_infos[0]["bucket_hist_launches"],
+        launches=hist_launches, launches_by_path=hist_by_path,
         max_abs_err=max(r["max_abs_err"] for r in hist), ms=hist16["kernel_ms"],
         kernel_ms=hist16["kernel_ms"], plain_ms=hist16["plain_ms"], bound_ms=hist16["bound_ms"],
         bound_by="bytes", library_ms=hist16["library_ms"],
@@ -797,7 +984,8 @@ def main(argv=None) -> int:
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, variants=rows, bucket_hist=hist, kernel_tier=tier,
-        whole_run=whole, other_engines=engines, main_runs=phases, total_s=elapsed(),
+        whole_run=whole, other_engines=engines, main_runs=phases, serve=serving,
+        total_s=elapsed(),
     ), indent=1))  # fmt: skip
     log(f"[done] {elapsed():.1f}s")
     log(card)

@@ -1,10 +1,24 @@
-"""Alias tables (Walker's method): the host numpy half of the JAX package's
-``core/sampling.py``.
+"""Samplers (PyTorch port): alias tables (first-order draws) and the
+pieces of the second-order rejection sampler used by the Node2vec
+transition — the port of the JAX package's ``core/sampling.py``.
 
-The batched step functions of the original (draws, membership probes,
-acceptance) live in :mod:`repro_torch.engines.step` and the CUDA kernel;
-what stays here is graph preprocessing, reached lazily by the weighted
-paths of :mod:`repro_torch.core.graph` and :mod:`repro_torch.io.blockfile`.
+Everything exists twice:
+  * host numpy constructors (graph preprocessing — alias tables per block,
+    reached lazily by the weighted paths of :mod:`repro_torch.core.graph`
+    and :mod:`repro_torch.io.blockfile`), and
+  * batched tensor step functions (:func:`alias_draw`,
+    :func:`searchsorted_rows` / :func:`membership`,
+    :func:`node2vec_accept_prob`), which run on whatever device their input
+    tensors live on and give the JAX functions' bits.  The plain pair
+    advance (:mod:`repro_torch.engines.step`) draws through
+    :func:`alias_draw` and probes membership through
+    :func:`searchsorted_rows`; it does not use :func:`membership` or
+    :func:`node2vec_accept_prob`, which stay for parity with the JAX
+    module.  Its acceptance rule is ``accept_thresholds`` (the kernel's
+    rounding: float32 ``1/p`` etc. divided by float32 ``M``), which can
+    differ from :func:`node2vec_accept_prob`'s in the last bit.
+
+Gathers clamp their index to ``[0, len-1]``, as jnp indexing does.
 """
 
 from __future__ import annotations
@@ -12,8 +26,17 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["build_alias", "build_alias_rows", "alias_draw_np"]
+__all__ = [
+    "build_alias",
+    "build_alias_rows",
+    "alias_draw_np",
+    "alias_draw",
+    "searchsorted_rows",
+    "membership",
+    "node2vec_accept_prob",
+]
 
 
 def build_alias(probs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -83,3 +106,78 @@ def alias_draw_np(
     idx = row_start + k
     take_alias = u2 >= q[idx]
     return np.where(take_alias, J[idx].astype(np.int64), k)
+
+
+def _take(flat, idx):
+    """``flat[idx]`` with the index clamped to the array, as jnp gathers."""
+    return flat[idx.clamp(0, flat.shape[0] - 1)]
+
+
+def alias_draw(J, q, row_start, row_deg, u1, u2):
+    """Tensor twin of :func:`alias_draw_np` (int32 local slots): slot
+    ``k = clamp(int(u1 * deg), 0, deg - 1)``, redirected to ``J[row_start +
+    k]`` when ``u2 >= q[row_start + k]``."""
+    k = torch.minimum((u1 * row_deg).to(torch.int32), row_deg - 1)
+    k = k.clamp(min=0)
+    idx = row_start + k
+    take_alias = u2 >= _take(q, idx)
+    return torch.where(take_alias, _take(J, idx), k)
+
+
+# ---------------------------------------------------------------------------
+# Membership probe: z in N(u) via binary search over sorted adjacency rows
+# ---------------------------------------------------------------------------
+
+
+def lower_bound_rows(flat, lo, hi, z, *, n_iters: int):
+    """Batched lower bound of ``z`` within the sorted slice ``flat[lo:hi]``.
+
+    Branch-free fixed-iteration binary search (``n_iters`` halvings), what
+    the kernel runs per lane.  Returns ``(pos, found)``.
+    """
+    hi0 = hi
+    for _ in range(n_iters):
+        mid = (lo + hi) // 2
+        val = _take(flat, mid)
+        valid = lo < hi
+        go_right = valid & (val < z)
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(valid & ~go_right, mid, hi)
+    return lo, (lo < hi0) & (_take(flat, lo) == z)
+
+
+def searchsorted_rows(indices, lo, hi, z, *, n_iters: int):
+    """Batched binary search of ``z`` within ``indices[lo:hi]`` (sorted
+    rows), ``n_iters = ceil(log2(max_row_len)) + 1`` halvings.  Returns True
+    iff found (the second-order membership probe)."""
+    return lower_bound_rows(indices, lo, hi, z, n_iters=n_iters)[1]
+
+
+def membership(indices, lo, hi, z, *, n_iters: int):
+    """True iff z appears in the sorted slice indices[lo:hi]."""
+    return searchsorted_rows(indices, lo, hi, z, n_iters=n_iters)
+
+
+# ---------------------------------------------------------------------------
+# Node2vec acceptance
+# ---------------------------------------------------------------------------
+
+
+def node2vec_accept_prob(z, u, is_neighbor_of_u, p: float, q: float):
+    """`a'_vz / (M a_vz)` with M = max(1, 1/p, 1/q)  (Eq. 1, unweighted bias),
+    as float32.
+
+    h_uz = 0 (z == u)        -> 1/p
+    h_uz = 1 (z in N(u))     -> 1
+    h_uz = 2 (otherwise)     -> 1/q
+
+    Rounded as the JAX function rounds: each bias is ``1/p`` etc. in double,
+    rounded to float32, then divided by float32 ``M`` in float32.
+    """
+    M = np.float32(max(1.0, 1.0 / p, 1.0 / q))
+    dev = z.device
+    ret, nbr, away = (
+        torch.tensor(np.float32(b) / M, dtype=torch.float32, device=dev)
+        for b in (1.0 / p, 1.0, 1.0 / q)
+    )
+    return torch.where(z == u, ret, torch.where(is_neighbor_of_u, nbr, away))

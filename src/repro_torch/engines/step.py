@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.sampling import _take, alias_draw, lower_bound_rows, searchsorted_rows
 from repro_torch.kernels import rng
 
 __all__ = [
@@ -66,34 +67,6 @@ def accept_thresholds(p: float, q: float) -> tuple:
     inv_q = one / np.float32(q)
     max_bias = np.maximum(one, np.maximum(inv_p, inv_q))
     return inv_p / max_bias, one / max_bias, inv_q / max_bias
-
-
-def _take(flat, idx):
-    """``flat[idx]`` with the index clamped to the array, as jnp gathers."""
-    return flat[idx.clamp(0, flat.shape[0] - 1)]
-
-
-def lower_bound_rows(flat, lo, hi, z, *, n_iters: int):
-    """Batched lower bound of ``z`` within the sorted slice ``flat[lo:hi]``.
-
-    Branch-free fixed-iteration binary search (``n_iters`` halvings).
-    ``flat`` is an int64 tensor; returns ``(pos, found)``.
-    """
-    hi0 = hi
-    for _ in range(n_iters):
-        mid = (lo + hi) // 2
-        val = _take(flat, mid)
-        valid = lo < hi
-        go_right = valid & (val < z)
-        lo = torch.where(go_right, mid + 1, lo)
-        hi = torch.where(valid & ~go_right, mid, hi)
-    return lo, (lo < hi0) & (_take(flat, lo) == z)
-
-
-def searchsorted_rows(indices, lo, hi, z, *, n_iters: int):
-    """True iff ``z`` is in the sorted slice ``indices[lo:hi]`` (the
-    second-order membership probe)."""
-    return lower_bound_rows(indices, lo, hi, z, n_iters=n_iters)[1]
 
 
 def pair_advance_ref(
@@ -206,12 +179,11 @@ def pair_advance_ref(
         u1 = rng.bits_to_unit(c0[0, :k_max])
         u2 = rng.bits_to_unit(c0[1, :k_max])
         u3 = rng.bits_to_unit(c1[0, :k_max])
-        kloc = torch.minimum((u1 * deg_c.to(torch.float32)).to(i64), deg_c - 1)
-        idx = islot + row_start + kloc
         if has_alias:
-            take_alias = u2 >= _take(alias_q, idx)
-            kloc = torch.where(take_alias, _take(alias_j, idx), kloc)
-            idx = islot + row_start + kloc
+            kloc = alias_draw(alias_j, alias_q, islot + row_start, deg_c, u1, u2).to(i64)
+        else:
+            kloc = torch.minimum((u1 * deg_c.to(torch.float32)).to(i64), deg_c - 1)
+        idx = islot + row_start + kloc
         zk = _take(indices, idx)
         if order == 2:
             uslot, urow, _ = locate(prev)

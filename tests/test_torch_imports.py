@@ -3,8 +3,9 @@
 * Importing every module of ``repro_torch`` (in a fresh interpreter)
   leaves ``jax`` and every ``repro`` module out of ``sys.modules``, and
   builds nothing.
-* The port's ``core``, ``engines``, ``kernels`` and ``core.engine`` export
-  the JAX package's names, but for the documented differences.
+* The port's ``core``, ``engines``, ``kernels``, ``core.engine``, ``serve``
+  and ``core.sampling`` export the JAX package's names, but for the
+  documented differences.
 * An engine built with the default device raises a clear error on a host
   without a CUDA device instead of falling back to the CPU.
 """
@@ -53,6 +54,9 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
         "repro_torch.engines.baselines",
         "repro_torch.engines.inmemory",
         "repro_torch.launch.walk",
+        "repro_torch.launch.serve",
+        "repro_torch.serve",
+        "repro_torch.serve.server",
         "repro_torch.convert",
         "repro_torch.core.sampling",
         "repro_torch.core.engine",
@@ -126,6 +130,8 @@ _EXPORT_DIFFS = [
     ("engines", {"advance_pair", "pair_advance_impl"}, {"pair_advance_ref", "resolve_device"}),
     ("kernels", {"WALK_TILE", "pair_advance_kernel"}, set()),
     ("core.engine", {"advance_pair", "pair_advance_impl"}, {"pair_advance_ref"}),
+    ("serve", set(), set()),
+    ("core.sampling", set(), set()),
 ]
 
 _EXPORTS_PROBE = r"""

@@ -8,8 +8,9 @@ skips on a host without a CUDA device.  Run it there with
 Tolerance: bitwise, on all six outputs of the pair advance (full sweep
 and ``max_hops``), on the bucket histogram's counts (every path, at bucket
 counts on both sides of each path's limit), on
-``node2vec_step`` / ``alias_step`` against the dense oracle, and on whole
-runs of every engine, kernel against plain version.
+``node2vec_step`` / ``alias_step`` against the dense oracle, on whole
+runs of every engine, and on a query server's answers and charges, kernel
+against plain version.
 
 The pair-advance cases hit both sides of each of the kernel's guards: slots
 that hold one contiguous run of ids (full blocks, the oracle's whole graph)
@@ -476,3 +477,43 @@ def test_other_engines_kernel_match_plain_version(cuda, engine):
         assert getattr(a.stats, field) == getattr(b.stats, field)
     oracle = InMemoryWalker(bg, task, device=cuda).run()
     np.testing.assert_array_equal(a.endpoint_counts, oracle.endpoint_counts)
+
+
+# ---- the query server ------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_server_kernel_matches_plain_version(cuda):
+    """A small server on the card, kernel against plain version: the same
+    answers and charges, and one launch per advance."""
+    from repro_torch.core import barabasi_albert, partition_into_n_blocks
+    from repro_torch.serve import QueryConfig, WalkQueryServer
+
+    bg = partition_into_n_blocks(barabasi_albert(2000, 5, seed=3), 4)
+    r = np.random.default_rng(7)
+    hot = int(bg.block_starts[1])
+    sources = np.where(r.random(48) < 0.85, r.integers(0, hot, 48), r.integers(0, 2000, 48))
+    cfg = QueryConfig(p=4.0, q=0.25, length=10, samples=16)
+    runs = {}
+    for impl in ("cuda", "torch"):
+        before = kernel.fused_advance_pair.launches
+        with WalkQueryServer(bg, max_batch=16, hot_blocks=2, seed=5, device=cuda,
+                             advance_impl=impl) as server:  # fmt: skip
+            for s in sources:
+                server.submit(int(s), cfg)
+            answers = server.flush()
+        launched = kernel.fused_advance_pair.launches - before
+        assert launched == (server.advance_calls if impl == "cuda" else 0)
+        assert server.advance_calls > 0 and server.batches_served == 3
+        runs[impl] = (answers, server.stats.as_dict())
+    (ac, sc), (at, st) = runs["cuda"], runs["torch"]
+    for a, b in zip(ac, at):
+        assert a.qid == b.qid and a.source == b.source
+        np.testing.assert_array_equal(a.vertices, b.vertices)
+        np.testing.assert_array_equal(a.counts, b.counts)
+        assert int(a.counts.sum()) == cfg.samples
+    timing = {"exec_time", "sim_wall_time", "writer_queue_peak"}
+    assert {k: v for k, v in sc.items() if k not in timing} == {
+        k: v for k, v in st.items() if k not in timing
+    }
+    assert sc["pinned_block_hits"] > 0
