@@ -58,7 +58,18 @@ Phases (each raises on failure, so the script exits non-zero):
    latency percentiles per server; (6c) ``python -m
    repro_torch.launch.serve`` (in-process) at its defaults.  Each served
    run sets the launch counts to 0 before and reads them after, and must
-   launch the kernel once per advance.
+   launch the kernel once per advance;
+7. LM serving — ``repro_torch.models`` with llama3.2-1b at its published
+   widths: (7a) in float32 with TF32 off, all 16 layers, the teacher-forced
+   forward's last-position logits against prefill of all but the last
+   token plus one decode step (atol = rtol = 2e-3, the JAX package's own
+   test), and the card's logits against the port's CPU run of the same
+   weights cut to 2 layers (atol = rtol = 1e-3); (7b) in bfloat16, the
+   config's dtype: 8 prompts of 512 tokens from ``default_rng(0)``,
+   prefilled, then 63 greedy decode steps (64 new tokens) against a KV
+   cache of 576 positions: prefill and per-step times beside their bounds,
+   peak memory, the first sequence's tokens; logits must stay finite and
+   tokens inside the vocabulary.  The phase launches neither kernel.
 
 There is no CPU fallback.
 
@@ -105,6 +116,19 @@ SERVE_QUERIES, SERVE_BATCH, SERVE_SKEW = 2048, 1024, 0.85
 SERVE_CONFIG = dict(p=4.0, q=0.25, length=20, decay=0.85, samples=32)
 #: ``IOStats.as_dict`` fields read off the wall clock or thread timing
 TIMING_FIELDS = ("exec_time", "sim_wall_time", "writer_queue_peak")
+#: the LM serving phase (7): llama3.2-1b at its published widths.  7a holds
+#: decode against forward (float32, all layers) on LM_EQ_BATCH sequences of
+#: LM_EQ_SEQ tokens, and the card against the CPU at LM_CPU_LAYERS layers;
+#: 7b serves LM_BATCH prompts of LM_PROMPT tokens, LM_NEW new tokens each
+LM_ARCH = "llama3.2-1b"
+LM_EQ_BATCH, LM_EQ_SEQ, LM_CPU_LAYERS = 2, 128, 2
+#: 7a's tolerances (atol = rtol): decode against forward is the JAX
+#: package's tests/test_models.py::test_decode_matches_forward; card
+#: against CPU, both float32 with TF32 off, differ by summation order only
+LM_EQUIV_TOL, LM_CPU_TOL = 2e-3, 1e-3
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 64
+#: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet), for the FLOPs bound
+BF16_FLOPS_PER_S = 989e12
 #: the bucket histogram's shapes (phase 3b): the main path's 1M walks,
 #: padded to the tile, over its 16 blocks and two larger bucket counts
 HIST_N, HIST_NBS = 1_048_576, (16, 4096, 65536)
@@ -882,6 +906,220 @@ def phase_serve(dev):
     return out
 
 
+def _lm_logits_gap(got, want, tol: float) -> dict:
+    """Whether ``got`` is within ``atol = rtol = tol`` of ``want``
+    (``numpy.testing.assert_allclose``'s rule), in float32, with the largest
+    gap, the largest logit, and the largest share of its allowance a gap
+    takes (``tol_share``: 1 is the limit)."""
+    got, want = got.float(), want.float().to(got.device)
+    gap = (got - want).abs()
+    allowed = tol + tol * want.abs()
+    return dict(
+        max_abs_err=float(gap.max()), max_abs_logit=float(want.abs().max()),
+        tol=tol, tol_share=float((gap / allowed).max()), ok=bool((gap <= allowed).all()),
+    )  # fmt: skip
+
+
+def _device_busy(call, reps: int) -> dict:
+    """What ``torch.profiler`` sees on the card over ``reps`` calls of
+    ``call()``: device milliseconds and kernels per call (kernels, copies
+    and fills), and the five kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us, ev.count, ev.key))
+    rows.sort(reverse=True)
+    return dict(
+        device_ms=sum(r[0] for r in rows) / reps / 1e3, kernels=sum(r[1] for r in rows) / reps,
+        top=[[key[:80], us / reps / 1e3] for us, _, key in rows[:5]],
+    )  # fmt: skip
+
+
+def _lm_pad(got, tgt):
+    """A prefill cache copied into the fixed decode buffer (zero beyond)."""
+    tgt[tuple(slice(0, n) for n in got.shape)] = got
+    return tgt
+
+
+def phase_lm(dev):
+    """Phase 7: the LM serving path at llama3.2-1b's published widths (7a
+    equivalence in float32, 7b serving in bfloat16)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bucket_hist import bucket_hist_kernel
+    from repro_torch.kernels.pair_advance import fused_advance_pair
+    from repro_torch.models import model_caches, model_decode, model_forward, model_init
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    torch.cuda.synchronize()
+    fused_advance_pair.launches = 0
+    bucket_hist_kernel.launches = 0
+    t_phase = time.perf_counter()
+
+    # 7a: decode against forward, float32, all layers
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype=torch.float32)
+    log(f"[lm] 7a {cfg.name} float32 {cfg.n_layers} layers; float32 matmuls in full precision: "
+        f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+        f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")  # fmt: skip
+    params = model_init(0, cfg, device=dev)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(
+        rng.integers(1, cfg.vocab_size, (LM_EQ_BATCH, LM_EQ_SEQ)).astype(np.int32), device=dev
+    )
+    want = model_forward(params, {"tokens": toks}, cfg)[0][:, -1]
+    _, caches = make_prefill_step(cfg)(params, {"tokens": toks[:, :-1]})
+    caches = tree_map(_lm_pad, caches, model_caches(cfg, LM_EQ_BATCH, LM_EQ_SEQ + 4, device=dev))
+    got, _ = model_decode(params, toks[:, -1:], caches, LM_EQ_SEQ - 1, cfg)
+    out["7a_decode_vs_forward"] = _lm_logits_gap(got, want, LM_EQUIV_TOL)
+    log(f"[lm] 7a decode vs forward (batch {LM_EQ_BATCH}, {LM_EQ_SEQ} tokens): "
+        f"{json.dumps(out['7a_decode_vs_forward'])}")  # fmt: skip
+    del caches, got, want
+
+    # the same weights cut to LM_CPU_LAYERS layers: the card against the CPU
+    n = LM_CPU_LAYERS
+    cut = dataclasses.replace(cfg, n_layers=n, segments=((("attn+mlp",), n),))
+    cut_params = dict(params, segments=[tree_map(lambda a: a[:n], params["segments"][0])])
+    card = model_forward(cut_params, {"tokens": toks}, cut)[0]
+    t0 = time.perf_counter()
+    host = model_forward(tree_map(lambda a: a.cpu(), cut_params), {"tokens": toks.cpu()}, cut)[0]
+    out["7a_card_vs_cpu"] = dict(_lm_logits_gap(card, host, LM_CPU_TOL), layers=LM_CPU_LAYERS,
+                                 cpu_s=time.perf_counter() - t0)  # fmt: skip
+    log(f"[lm] 7a card vs CPU ({LM_CPU_LAYERS} layers, same weights, all {LM_EQ_SEQ} positions): "
+        f"{json.dumps(out['7a_card_vs_cpu'])}")  # fmt: skip
+    del params, cut_params, card, host
+    torch.cuda.empty_cache()
+    for key in ("7a_decode_vs_forward", "7a_card_vs_cpu"):
+        if not out[key]["ok"]:
+            raise AssertionError(f"phase 7a: {key} outside its tolerance: {out[key]}")
+
+    # 7b: serving in the config's own dtype
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = model_init(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"[lm] 7b {cfg.name} {cfg.dtype} {cfg.n_layers} layers d_model {cfg.d_model} "
+        f"GQA {cfg.n_heads}/{cfg.n_kv_heads} vocab {cfg.vocab_size}: {n_params:,} parameters, "
+        f"{weight_bytes:,} bytes, made on the card in {init_s:.2f}s")  # fmt: skip
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(
+        rng.integers(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32), device=dev
+    )
+    prefill = make_prefill_step(cfg)
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    prefill_ms = []
+    for _ in range(2):  # the first call also sets up cuBLAS
+        start, stop = ev(), ev()
+        torch.cuda.synchronize()
+        start.record()
+        logits, pcaches = prefill(params, {"tokens": prompts})
+        stop.record()
+        torch.cuda.synchronize()
+        prefill_ms.append(start.elapsed_time(stop))
+    max_len = LM_PROMPT + LM_NEW
+    caches = tree_map(_lm_pad, pcaches, model_caches(cfg, LM_BATCH, max_len, device=dev))
+    del pcaches
+    prefill_finite = bool(torch.isfinite(logits).all())
+    decode = make_decode_step(cfg)
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    seq, marks = [tok], []
+    t0 = time.perf_counter()
+    for i in range(LM_NEW - 1):
+        start, stop = ev(), ev()
+        start.record()
+        step = {"token": tok, "cache_len": LM_PROMPT + i}
+        tok, step_logits, caches = decode(params, step, caches)
+        stop.record()
+        marks.append((start, stop))
+        tok = tok[:, None]
+        seq.append(tok)
+    torch.cuda.synchronize()
+    decode_wall_s = time.perf_counter() - t0
+    step_ms = sorted(a.elapsed_time(b) for a, b in marks)
+    seqs = torch.cat(seq, dim=1).cpu()
+    peak = torch.cuda.max_memory_allocated()
+    # the card's busy time: one more prefill, and decode steps at the
+    # cache's last free position (the profiler slows the host, not the card)
+    busy = dict(
+        prefill=_device_busy(lambda: prefill(params, {"tokens": prompts}), 1),
+        decode=_device_busy(
+            lambda: decode(params, {"token": tok, "cache_len": max_len - 1}, caches), 5
+        ),
+    )  # fmt: skip
+    launches, hist_launches = fused_advance_pair.launches, bucket_hist_kernel.launches
+
+    tokens = LM_BATCH * LM_PROMPT
+    flops = 2 * n_params * tokens
+    # the cache a step reads: every layer's K and V at the positions filled
+    # so far (the mean over the steps)
+    kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * cfg.dtype.itemsize
+    kv_bytes = LM_BATCH * kv_row * (LM_PROMPT + (LM_NEW - 1) / 2 + 1)
+    median = step_ms[len(step_ms) // 2]
+    lm = dict(
+        arch=cfg.name, dtype=str(cfg.dtype), layers=cfg.n_layers, params=n_params,
+        weight_bytes=weight_bytes, batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW,
+        cache_len=max_len, init_s=init_s,
+        prefill_first_ms=prefill_ms[0], prefill_ms=prefill_ms[1],
+        prefill_tokens_per_s=tokens / (prefill_ms[1] / 1e3),
+        prefill_flops=flops, prefill_bound_ms=flops / BF16_FLOPS_PER_S * 1e3,
+        decode_steps=len(step_ms), decode_ms_median=median, decode_ms_min=step_ms[0],
+        decode_ms_max=step_ms[-1], decode_tokens_per_s=LM_BATCH / (median / 1e3),
+        decode_wall_s=decode_wall_s, decode_kv_bytes_mean=kv_bytes,
+        decode_bound_ms=(weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+        max_memory_allocated=peak, launches=launches, bucket_hist_launches=hist_launches,
+        seq0=seqs[0].tolist(), device_busy=busy,
+        prefill_idle_share=1 - busy["prefill"]["device_ms"] / prefill_ms[1],
+        decode_idle_share=1 - busy["decode"]["device_ms"] / median,
+    )  # fmt: skip
+    out["7b"] = lm
+    log(f"[lm] 7b prefill {LM_BATCH} x {LM_PROMPT} tokens: {prefill_ms[1]:.3f} ms "
+        f"(first call {prefill_ms[0]:.3f} ms), {lm['prefill_tokens_per_s']:,.0f} tokens/s; "
+        f"bound {lm['prefill_bound_ms']:.3f} ms = 2 x {n_params:,} params x {tokens} tokens "
+        f"/ {BF16_FLOPS_PER_S:.3g} FLOP/s (bf16 dense peak; attention's own FLOPs left out)")  # fmt: skip
+    log(f"[lm] 7b decode {len(step_ms)} steps of {LM_BATCH} tokens (CUDA events per step): "
+        f"median {median:.3f} ms (min {step_ms[0]:.3f}, max {step_ms[-1]:.3f}), "
+        f"{lm['decode_tokens_per_s']:,.1f} tokens/s; {decode_wall_s:.3f} s on the host clock; "
+        f"bound {lm['decode_bound_ms']:.4f} ms = ({weight_bytes:,} weight bytes + "
+        f"{kv_bytes:,.0f} KV cache bytes, the mean step's) / {HBM_BYTES_PER_S:.3g} B/s")  # fmt: skip
+    for name in ("prefill", "decode"):
+        b = busy[name]
+        log(f"[lm] 7b {name} on the card (torch.profiler): {b['device_ms']:.3f} ms busy and "
+            f"{b['kernels']:.0f} kernels per call, idle share {lm[name + '_idle_share']:.3f} "
+            f"of the timed call; top {json.dumps(b['top'])}")  # fmt: skip
+    log(f"[lm] 7b torch.cuda.max_memory_allocated over prefill + decode: {peak:,} bytes")
+    log(f"[lm] 7b seq 0: {lm['seq0']}")
+    log(f"[lm] phase 7: {time.perf_counter() - t_phase:.1f}s; kernel launches: pair_advance "
+        f"{launches}, bucket_hist {hist_launches}")  # fmt: skip
+    if not (prefill_finite and bool(torch.isfinite(step_logits).all())):
+        raise AssertionError("phase 7b: logits are not finite")
+    if not ((seqs >= 0) & (seqs < cfg.vocab_size)).all():
+        raise AssertionError("phase 7b: a token outside the vocabulary")
+    if seqs.shape != (LM_BATCH, LM_NEW):
+        raise AssertionError(f"phase 7b: {tuple(seqs.shape)} tokens")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -950,11 +1188,14 @@ def main(argv=None) -> int:
             ["biblock"], extra=["--graph-backend", "disk", "--pool", "disk"]
         )
     serving = phase_serve(dev)
-    # ``launches`` counts the main paths only: the walk launcher and the
-    # full-size hot-set server; the LRU server and the launcher at its small
-    # defaults are listed beside them in ``launches_by_path``
+    lm = phase_lm(dev)
+    # ``launches`` counts the main paths only: the walk launcher, the
+    # full-size hot-set server and LM serving (which runs neither kernel);
+    # the LRU server and the launcher at its small defaults are listed
+    # beside them in ``launches_by_path``
     def by_path(key):
-        main = {"walk biblock+oracle": main_infos[0][key], "serve hot-set": serving["6b"]["hot"][key]}
+        main = {"walk biblock+oracle": main_infos[0][key], "serve hot-set": serving["6b"]["hot"][key],
+                "lm serve": lm["7b"][key]}  # fmt: skip
         other = {"serve lru": serving["6b"]["lru"][key], "serve launcher": serving["6c"][key]}
         return sum(main.values()), {**main, **other}
 
@@ -984,7 +1225,7 @@ def main(argv=None) -> int:
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, variants=rows, bucket_hist=hist, kernel_tier=tier,
-        whole_run=whole, other_engines=engines, main_runs=phases, serve=serving,
+        whole_run=whole, other_engines=engines, main_runs=phases, serve=serving, lm=lm,
         total_s=elapsed(),
     ), indent=1))  # fmt: skip
     log(f"[done] {elapsed():.1f}s")

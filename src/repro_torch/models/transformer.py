@@ -1,0 +1,236 @@
+"""Decoder-only LM assembly over layer segments.
+
+The port of ``repro/models/transformer.py``.  A config's ``segments`` is a
+tuple of ``(pattern, n_groups)``; each pattern entry is
+``"<block>[+<mlp>]"``.  The port runs the block kinds ``attn`` and
+``local`` with the mlp kind ``mlp`` (every dense decoder); ``mla``,
+``ssd``, ``rglru`` and ``moe`` raise ``NotImplementedError`` until their
+modules are ported.
+
+The parameter and cache trees have the JAX package's layout: a segment's
+tensors are stacked on a leading group axis (as ``jax.vmap`` and
+``lax.scan`` stack them), and the layers are walked with a Python loop over
+that axis.  The JAX module pins activations' sharding with
+``sharding.context.constrain``; on one device that is the identity, so the
+port drops those calls.
+
+The same assembly serves:
+  * ``forward``      — teacher-forced logits (VLM prefix included)
+  * ``prefill``      — forward + per-layer caches + last-position logits
+  * ``decode_step``  — one token against the caches, updated in place
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from .attention import attention_apply, attention_decode, attn_init, init_kv_cache
+from .common import ModelConfig, dense_init, mlp_apply, mlp_init, rms_norm, tree_map
+
+__all__ = [
+    "init_params",
+    "forward",
+    "prefill",
+    "decode_step",
+    "init_caches",
+    "parse_kind",
+]
+
+#: block and mlp kinds of the JAX package that wait for their modules
+_NOT_PORTED = {
+    "mla": "models/mla.py",
+    "ssd": "models/ssm.py",
+    "rglru": "models/rglru.py",
+    "moe": "models/moe.py",
+}
+
+
+def parse_kind(kind: str) -> Tuple[str, Optional[str]]:
+    if "+" in kind:
+        b, m = kind.split("+")
+        return b, m
+    return kind, None
+
+
+def _check_kind(kind: str) -> Tuple[str, Optional[str]]:
+    """``parse_kind``, raising on a kind the port cannot run."""
+    block, mlp = parse_kind(kind)
+    for part in (block, mlp):
+        if part in _NOT_PORTED:
+            raise NotImplementedError(
+                f"layer kind {kind!r}: {part!r} is not ported to PyTorch yet "
+                f"({_NOT_PORTED[part]}, ROADMAP.md section 1, item 4)"
+            )
+    if block not in ("attn", "local"):
+        raise ValueError(f"unknown block kind {block!r}")
+    if mlp not in (None, "mlp"):
+        raise ValueError(f"unknown mlp kind {mlp!r}")
+    return block, mlp
+
+
+def _group(tree, g: int):
+    """Group ``g`` of a stacked segment tree (views, not copies)."""
+    return tree_map(lambda a: a[g], tree)
+
+
+def _stack(trees):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _block_init(gen: torch.Generator, kind: str, cfg: ModelConfig) -> dict:
+    _, mlp = _check_kind(kind)
+    p: Dict[str, Any] = {"norm1": torch.zeros((cfg.d_model,), dtype=torch.float32)}
+    p["attn"] = attn_init(gen, cfg)
+    if mlp == "mlp":
+        p["norm2"] = torch.zeros((cfg.d_model,), dtype=torch.float32)
+        p["mlp"] = mlp_init(gen, cfg)
+    return p
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Parameters on the default device, every draw from ``gen``."""
+    vp = cfg.vocab_padded
+    params: Dict[str, Any] = {
+        "embed": dense_init(gen, (vp, cfg.d_model), cfg.dtype, scale=0.02),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, vp), cfg.dtype)
+    params["segments"] = [
+        _stack(
+            [
+                {f"pos{j}": _block_init(gen, kind, cfg) for j, kind in enumerate(pattern)}
+                for _ in range(n_groups)
+            ]
+        )
+        for pattern, n_groups in cfg.segments
+    ]
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill body)
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(p, x, kind: str, cfg: ModelConfig, *, collect_cache: bool):
+    """One layer. Returns (x, cache_or_None, aux)."""
+    block, mlp = _check_kind(kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    cache = None
+    window = cfg.window if block == "local" else None
+    out, (k, v) = attention_apply(p["attn"], h, cfg, window=window)
+    if collect_cache:
+        if window and k.shape[1] > window:
+            # ring-buffer layout: decode stores position p at slot p % W,
+            # so the retained window must be rolled to match
+            S = k.shape[1]
+            k = torch.roll(k[:, -window:], S % window, dims=1)
+            v = torch.roll(v[:, -window:], S % window, dims=1)
+        cache = {"k": k, "v": v}
+    x = x + out
+    if mlp == "mlp":
+        x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg.mlp_type)
+    return x, cache, aux
+
+
+def _run_segments(params, x, cfg: ModelConfig, *, collect_cache: bool):
+    """Each segment's groups in order. Returns (x, caches per segment, total aux)."""
+    caches = []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s, (pattern, n_groups) in enumerate(cfg.segments):
+        seg_caches = []
+        for g in range(n_groups):
+            gp = _group(params["segments"][s], g)
+            cache_out = {}
+            for j, kind in enumerate(pattern):
+                x, c, a = _apply_block(gp[f"pos{j}"], x, kind, cfg, collect_cache=collect_cache)
+                aux_total = aux_total + a
+                cache_out[f"pos{j}"] = c
+            seg_caches.append(cache_out)
+        caches.append(_stack(seg_caches) if collect_cache else None)
+    return x, caches, aux_total
+
+
+def _logits(params, x, cfg: ModelConfig):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    return x @ head
+
+
+def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None, collect_cache: bool = False):
+    """tokens: [B, S] -> logits [B, S(+P), vocab_padded].
+
+    ``prefix_embeds`` ([B, P, D], the [vlm] frontend stub output) is
+    prepended to the token embeddings; logits cover the full sequence, the
+    caller slices the token region.
+    """
+    x = params["embed"][tokens]
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    x, caches, aux = _run_segments(params, x, cfg, collect_cache=collect_cache)
+    logits = _logits(params, x, cfg)
+    if collect_cache:
+        return logits, caches, aux
+    return logits, aux
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int):
+    """Zero caches mirroring the segment structure, on the default device."""
+    caches = []
+    for pattern, n_groups in cfg.segments:
+        one_group = {}
+        for j, kind in enumerate(pattern):
+            block, _ = _check_kind(kind)
+            window = cfg.window if block == "local" else None
+            one_group[f"pos{j}"] = init_kv_cache(cfg, batch, max_len, window=window)
+        caches.append(tree_map(lambda x: x.new_zeros((n_groups, *x.shape)), one_group))
+    return caches
+
+
+def prefill(params, tokens, cfg: ModelConfig, *, prefix_embeds=None):
+    """Returns (last-position logits [B, V], caches)."""
+    logits, caches, _aux = forward(
+        params, tokens, cfg, prefix_embeds=prefix_embeds, collect_cache=True
+    )
+    return logits[:, -1], caches
+
+
+def decode_step(params, token, caches, cache_len, cfg: ModelConfig):
+    """token: [B, 1] int; cache_len: int — valid positions in cache.
+
+    Returns (logits [B, vocab_padded], caches).  The caches are updated in
+    place: the returned tree is ``caches`` itself, holding what the JAX
+    package's ``decode_step`` returns as new caches.
+    """
+    x = params["embed"][token]  # [B,1,D]
+    for s, (pattern, n_groups) in enumerate(cfg.segments):
+        for g in range(n_groups):
+            gp = _group(params["segments"][s], g)
+            gc = _group(caches[s], g)
+            for j, kind in enumerate(pattern):
+                block, mlp = _check_kind(kind)
+                p = gp[f"pos{j}"]
+                hn = rms_norm(x, p["norm1"], cfg.norm_eps)
+                window = cfg.window if block == "local" else None
+                c = gc[f"pos{j}"]
+                out, _ = attention_decode(p["attn"], hn, c, cache_len, cfg, window=window)
+                x = x + out
+                if mlp == "mlp":
+                    x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg.mlp_type)
+    return _logits(params, x, cfg)[:, 0], caches

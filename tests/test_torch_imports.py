@@ -3,9 +3,9 @@
 * Importing every module of ``repro_torch`` (in a fresh interpreter)
   leaves ``jax`` and every ``repro`` module out of ``sys.modules``, and
   builds nothing.
-* The port's ``core``, ``engines``, ``kernels``, ``core.engine``, ``serve``
-  and ``core.sampling`` export the JAX package's names, but for the
-  documented differences.
+* The port's ``core``, ``engines``, ``kernels``, ``core.engine``, ``serve``,
+  ``core.sampling``, ``models``, ``configs`` and ``train`` export the JAX
+  package's names, but for the documented differences.
 * An engine built with the default device raises a clear error on a host
   without a CUDA device instead of falling back to the CPU.
 """
@@ -61,6 +61,14 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
         "repro_torch.core.sampling",
         "repro_torch.core.engine",
         "repro_torch.io.blockfile",
+        "repro_torch.models",
+        "repro_torch.models.attention",
+        "repro_torch.models.transformer",
+        "repro_torch.models.module",
+        "repro_torch.configs",
+        "repro_torch.configs.llama32_1b",
+        "repro_torch.train",
+        "repro_torch.train.step",
     ):
         assert m in res["modules"]
     assert list(tmp_path.iterdir()) == []  # importing builds no kernel
@@ -124,7 +132,8 @@ def test_kernel_wrapper_rejects_other_devices():
 #: the JAX package's jitted pair advance (``advance_pair``,
 #: ``pair_advance_impl``) is the port's ``pair_advance_ref``; ``WALK_TILE``
 #: and ``pair_advance_kernel`` are Pallas; ``resolve_device``, ``BlockView``
-#: and ``ResidentPair`` are exported by the port alone
+#: and ``ResidentPair`` are exported by the port alone; ``train``'s loss and
+#: train step come with the port's training slice
 _EXPORT_DIFFS = [
     ("core", {"advance_pair"}, {"pair_advance_ref", "BlockView", "ResidentPair"}),
     ("engines", {"advance_pair", "pair_advance_impl"}, {"pair_advance_ref", "resolve_device"}),
@@ -132,16 +141,26 @@ _EXPORT_DIFFS = [
     ("core.engine", {"advance_pair", "pair_advance_impl"}, {"pair_advance_ref"}),
     ("serve", set(), set()),
     ("core.sampling", set(), set()),
+    ("models", set(), set()),
+    ("configs", set(), set()),
+    ("train", {"lm_loss", "make_loss_fn", "make_train_step"}, set()),
 ]
 
 _EXPORTS_PROBE = r"""
-import importlib, json, sys
+import importlib, json, sys, types
+
+def exported(mod):  # __all__, or the public names a package without one binds
+    if hasattr(mod, "__all__"):
+        return mod.__all__
+    return [n for n in dir(mod)
+            if not n.startswith("_") and not isinstance(getattr(mod, n), types.ModuleType)]
+
 out = {}
 for pkg in sys.argv[1:]:
     jax_mod = importlib.import_module("repro." + pkg)
     port_mod = importlib.import_module("repro_torch." + pkg)
-    out[pkg] = [sorted(jax_mod.__all__), sorted(port_mod.__all__)]
-    for name in port_mod.__all__:
+    out[pkg] = [sorted(exported(jax_mod)), sorted(exported(port_mod))]
+    for name in exported(port_mod):
         getattr(port_mod, name)  # every exported name resolves
 print(json.dumps(out))
 """
