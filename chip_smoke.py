@@ -69,7 +69,22 @@ Phases (each raises on failure, so the script exits non-zero):
    prefilled, then 63 greedy decode steps (64 new tokens) against a KV
    cache of 576 positions: prefill and per-step times beside their bounds,
    peak memory, the first sequence's tokens; logits must stay finite and
-   tokens inside the vocabulary.  The phase launches neither kernel.
+   tokens inside the vocabulary.  The phase launches neither kernel;
+8. LM training — ``repro_torch.train.make_train_step`` (AdamW with a
+   float32 master, the flash backward as a ``torch.autograd.Function``,
+   remat, microbatches): (8a) the reduced llama config in float32 with TF32
+   off, the loss, every leaf's gradient and one train step's parameters on
+   the card against the CPU (atol = rtol = 1e-4), and the flash backward at
+   a bfloat16 GQA shape (32 query and 8 KV heads of 64, 1,100 positions, so
+   the chunks pad) against autograd through the plain chunked forward
+   (largest gap within 2^-6 of the largest gradient); (8b) llama3.2-1b at
+   its published widths in bfloat16 with the config's remat policy and
+   microbatches: 8 sequences of 512 tokens from a seeded
+   ``torch.Generator``, one warm-up step and 5 timed steps on the same
+   batch, every loss finite and the last below the first; step time,
+   tokens/s, the bound, peak memory, kernels per step and the card's idle
+   share, and one microbatch's gradients and one optimiser update timed
+   apart.  The phase launches neither kernel.
 
 There is no CPU fallback.
 
@@ -91,6 +106,7 @@ version: the measurements the plan's limits rest on.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -129,6 +145,19 @@ LM_EQUIV_TOL, LM_CPU_TOL = 2e-3, 1e-3
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 64
 #: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet), for the FLOPs bound
 BF16_FLOPS_PER_S = 989e12
+#: the LM train phase (8).  8a: card against CPU, both float32 with TF32 off
+#: (the tolerance of tests/test_torch_lm.py against the JAX package), and the
+#: flash backward at a bf16 GQA shape against autograd through the plain
+#: chunked forward: both take their products in float32, but the autograd
+#: path rounds the probabilities' gradient to bf16 where the forward casts
+#: them, and each side rounds dq, dk and dv to bf16, so the largest gap
+#: may be a few bf16 steps (2^-8 relative) of the largest gradient
+TRAIN_CPU_TOL = 1e-4
+FLASH_B, FLASH_S, FLASH_H, FLASH_KVH, FLASH_D = 2, 1100, 32, 8, 64
+FLASH_BF16_TOL = 2.0**-6
+#: 8b: TRAIN_BATCH sequences of TRAIN_SEQ tokens, a warm-up step, then
+#: TRAIN_STEPS timed steps on the same batch
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
 #: the bucket histogram's shapes (phase 3b): the main path's 1M walks,
 #: padded to the tile, over its 16 blocks and two larger bucket counts
 HIST_N, HIST_NBS = 1_048_576, (16, 4096, 65536)
@@ -1120,6 +1149,192 @@ def phase_lm(dev):
     return out
 
 
+def _train_batch(cfg, n: int, seq: int, dev):
+    """``n`` sequences of ``seq`` tokens from a seeded generator on ``dev``;
+    the labels are the next tokens, IGNORE on the last position."""
+    import torch
+
+    from repro_torch.train.loss import IGNORE
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(1, cfg.vocab_size, (n, seq), generator=gen, device=dev)
+    labels = torch.cat([toks[:, 1:], torch.full_like(toks[:, :1], IGNORE)], dim=1)
+    return {"tokens": toks, "labels": labels}
+
+
+def _flash_backward_gap(dev) -> dict:
+    """8a: the flash backward (``chunked_attention``'s autograd.Function)
+    against autograd through the plain chunked forward, bf16 on the card."""
+    import torch
+
+    from repro_torch.models import attention
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, S, H, KVH, D = FLASH_B, FLASH_S, FLASH_H, FLASH_KVH, FLASH_D
+    draw = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v, dout = draw(B, S, H, D), draw(B, S, KVH, D), draw(B, S, KVH, D), draw(B, S, H, D)
+
+    def plain(q, k, v):
+        qp, kp, vp, grid = attention._pad(q, k, v, True, None, 0, 512, 1024)
+        return attention._flash_forward(qp, kp, vp, grid)[0][:, :S]
+
+    grads = []
+    for fn in (attention.chunked_attention, plain):
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*ts), ts, dout))
+    out = {}
+    for name, got, want in zip(("dq", "dk", "dv"), *grads):
+        gap = float((got.float() - want.float()).abs().max())
+        top = float(want.float().abs().max())
+        out[name] = dict(max_abs_err=gap, max_abs_grad=top, rel=gap / top,
+                         ok=bool(gap <= FLASH_BF16_TOL * top))  # fmt: skip
+    return dict(shape=dict(B=B, S=S, H=H, KVH=KVH, D=D, q_chunk=512, kv_chunk=1024),
+                tol=FLASH_BF16_TOL, **out)  # fmt: skip
+
+
+def phase_lm_train(dev):
+    """Phase 8: the LM train step (8a the card against the CPU and the flash
+    backward; 8b llama3.2-1b at its published widths)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels.bucket_hist import bucket_hist_kernel
+    from repro_torch.kernels.pair_advance import fused_advance_pair
+    from repro_torch.models import model_init
+    from repro_torch.models.common import tree_leaves, tree_leaves_with_path, tree_map
+    from repro_torch.optim import OptConfig, adamw_init, adamw_update
+    from repro_torch.train import make_loss_fn, make_train_step
+    from repro_torch.train.step import _value_and_grad
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    out = {}
+    t_phase = time.perf_counter()
+
+    # 8a: the reduced config, float32, card against CPU
+    cfg = reduced_config(LM_ARCH)
+    opt = OptConfig(warmup_steps=1)
+    params = model_init(0, cfg, device=dev)
+    batch = _train_batch(cfg, 2, 64, dev)
+    host_params = tree_map(lambda a: a.cpu(), params)
+    host_batch = {k: v.cpu() for k, v in batch.items()}
+    loss_fn = make_loss_fn(cfg)
+    (loss, _), grads = _value_and_grad(loss_fn, params, batch)
+    (host_loss, _), host_grads = _value_and_grad(loss_fn, host_params, host_batch)
+    checks = {"loss": _lm_logits_gap(loss, host_loss, TRAIN_CPU_TOL)}
+    host_flat = dict(tree_leaves_with_path(host_grads))
+    for path, g in tree_leaves_with_path(grads):
+        checks["grad" + path] = _lm_logits_gap(g, host_flat[path], TRAIN_CPU_TOL)
+    step = make_train_step(cfg, opt)
+    params, _, _ = step(params, adamw_init(params), batch)
+    host_params, _, _ = step(host_params, adamw_init(host_params), host_batch)
+    host_flat = dict(tree_leaves_with_path(host_params))
+    for path, p in tree_leaves_with_path(params):
+        checks["step" + path] = _lm_logits_gap(p, host_flat[path], TRAIN_CPU_TOL)
+    worst = max(checks, key=lambda key: checks[key]["tol_share"])
+    out["8a_card_vs_cpu"] = dict(
+        arch=cfg.name, leaves=len(tree_leaves(grads)), checks=len(checks), worst=worst,
+        worst_gap=checks[worst], ok=all(c["ok"] for c in checks.values()),
+        failed=[key for key, c in checks.items() if not c["ok"]],
+    )  # fmt: skip
+    log(f"[lm-train] 8a {cfg.name} float32, TF32 off, card vs CPU: loss, "
+        f"{len(tree_leaves(grads))} gradients and one train step's parameters; "
+        f"{json.dumps(out['8a_card_vs_cpu'])}")  # fmt: skip
+    out["8a_flash_backward"] = _flash_backward_gap(dev)
+    log(f"[lm-train] 8a flash backward vs autograd through the plain chunked forward, bf16: "
+        f"{json.dumps(out['8a_flash_backward'])}")  # fmt: skip
+    del params, host_params, grads, host_grads
+    if not out["8a_card_vs_cpu"]["ok"]:
+        raise AssertionError(f"phase 8a: outside {TRAIN_CPU_TOL}: {out['8a_card_vs_cpu']}")
+    for name in ("dq", "dk", "dv"):
+        if not out["8a_flash_backward"][name]["ok"]:
+            raise AssertionError(f"phase 8a: flash {name}: {out['8a_flash_backward'][name]}")
+
+    # 8b: llama3.2-1b at its published widths, in its own dtype, remat
+    # policy and microbatches
+    cfg = get_config(LM_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fused_advance_pair.launches = 0
+    bucket_hist_kernel.launches = 0
+    params = model_init(0, cfg, device=dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+    state = adamw_init(params)
+    step = make_train_step(cfg, opt, microbatches=cfg.train_microbatches)
+    log(f"[lm-train] 8b {cfg.name} {cfg.dtype} {cfg.n_layers} layers, {n_params:,} parameters; "
+        f"remat {cfg.remat_policy!r}, {cfg.train_microbatches} microbatches, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens; {dataclasses.asdict(opt)}")  # fmt: skip
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    step_ms, host_ms, metrics = [], [], []
+    for _ in range(1 + TRAIN_STEPS):  # the first is the warm-up
+        start, stop = ev(), ev()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        params, state, m = step(params, state, batch)
+        stop.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        step_ms.append(start.elapsed_time(stop))
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    launches, hist_launches = fused_advance_pair.launches, bucket_hist_kernel.launches
+    busy = _device_busy(lambda: step(params, state, batch), 1)
+    # where a step goes: one microbatch's forward, recompute and backward,
+    # then one optimiser update of every parameter from float32 gradients
+    half = {k: v[: TRAIN_BATCH // cfg.train_microbatches] for k, v in batch.items()}
+    grads_ms = cuda_ms(lambda: _value_and_grad(make_loss_fn(cfg), params, half), 2)
+    grads = tree_map(lambda p: p.float(), _value_and_grad(make_loss_fn(cfg), params, half)[1])
+    adamw_ms = cuda_ms(lambda: adamw_update(grads, state, params, opt), 2)
+    del grads
+    timed = sorted(step_ms[1:])
+    median = timed[len(timed) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens
+    losses = [m["loss"] for m in metrics]
+    lm = dict(
+        arch=cfg.name, dtype=str(cfg.dtype), layers=cfg.n_layers, params=n_params,
+        remat_policy=cfg.remat_policy, microbatches=cfg.train_microbatches, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, opt=dataclasses.asdict(opt), warmup_ms=step_ms[0], step_ms=step_ms[1:],
+        host_ms=host_ms, step_ms_median=median, tokens_per_s=tokens / (median / 1e3),
+        flops=flops, bound_ms=flops / BF16_FLOPS_PER_S * 1e3, max_memory_allocated=peak,
+        device_busy=busy, idle_share=1 - busy["device_ms"] / median, losses=losses,
+        microbatch_grads_ms=grads_ms, adamw_update_ms=adamw_ms,
+        grad_norm=[m["grad_norm"] for m in metrics], lr=[m["lr"] for m in metrics],
+        tokens=metrics[-1]["tokens"], launches=launches, bucket_hist_launches=hist_launches,
+    )  # fmt: skip
+    out["8b"] = lm
+    log(f"[lm-train] 8b {TRAIN_STEPS} steps of {tokens} tokens (CUDA events, after a warm-up "
+        f"step of {step_ms[0]:.3f} ms): median {median:.3f} ms (min {timed[0]:.3f}, max "
+        f"{timed[-1]:.3f}), {lm['tokens_per_s']:,.0f} tokens/s; host clock "
+        f"{json.dumps([round(x, 3) for x in host_ms])} ms")  # fmt: skip
+    log(f"[lm-train] 8b bound {lm['bound_ms']:.3f} ms = 6 x {n_params:,} params x {tokens} "
+        f"tokens / {BF16_FLOPS_PER_S:.3g} FLOP/s (bf16 dense peak; attention's own FLOPs and "
+        f"remat's recompute left out); {median / lm['bound_ms']:.1f}x over it")  # fmt: skip
+    log(f"[lm-train] 8b torch.cuda.max_memory_allocated: {peak:,} bytes")
+    log(f"[lm-train] 8b on the card (torch.profiler, one step): {busy['device_ms']:.3f} ms busy, "
+        f"{busy['kernels']:.0f} kernels per step, idle share {lm['idle_share']:.3f}; "
+        f"top {json.dumps(busy['top'])}")  # fmt: skip
+    log(f"[lm-train] 8b split (CUDA events, mean of 2): one microbatch's forward, recompute and "
+        f"backward {grads_ms:.3f} ms (x {cfg.train_microbatches}), one adamw_update "
+        f"{adamw_ms:.3f} ms; the rest of the median step (gradient sums, dispatch) "
+        f"{median - cfg.train_microbatches * grads_ms - adamw_ms:.3f} ms")  # fmt: skip
+    log(f"[lm-train] 8b loss {json.dumps(losses)}; grad_norm {json.dumps(lm['grad_norm'])}; "
+        f"lr {json.dumps(lm['lr'])}; tokens {lm['tokens']:.0f}")  # fmt: skip
+    log(f"[lm-train] card: {card_line()}")
+    log(f"[lm-train] phase 8: {time.perf_counter() - t_phase:.1f}s; kernel launches: "
+        f"pair_advance {launches}, bucket_hist {hist_launches}")  # fmt: skip
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 8b: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 8b: the loss did not fall: {losses}")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1189,13 +1404,15 @@ def main(argv=None) -> int:
         )
     serving = phase_serve(dev)
     lm = phase_lm(dev)
+    lm_train = phase_lm_train(dev)
     # ``launches`` counts the main paths only: the walk launcher, the
-    # full-size hot-set server and LM serving (which runs neither kernel);
+    # full-size hot-set server, LM serving and LM training (which run
+    # neither kernel);
     # the LRU server and the launcher at its small defaults are listed
     # beside them in ``launches_by_path``
     def by_path(key):
         main = {"walk biblock+oracle": main_infos[0][key], "serve hot-set": serving["6b"]["hot"][key],
-                "lm serve": lm["7b"][key]}  # fmt: skip
+                "lm serve": lm["7b"][key], "lm train": lm_train["8b"][key]}  # fmt: skip
         other = {"serve lru": serving["6b"]["lru"][key], "serve launcher": serving["6c"][key]}
         return sum(main.values()), {**main, **other}
 
@@ -1226,7 +1443,7 @@ def main(argv=None) -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, variants=rows, bucket_hist=hist, kernel_tier=tier,
         whole_run=whole, other_engines=engines, main_runs=phases, serve=serving, lm=lm,
-        total_s=elapsed(),
+        lm_train=lm_train, total_s=elapsed(),
     ), indent=1))  # fmt: skip
     log(f"[done] {elapsed():.1f}s")
     log(card)

@@ -1,5 +1,5 @@
 """Attention: GQA-grouped chunked (flash) attention, banded local attention,
-and single-token decode against a KV cache — forward only.
+and single-token decode against a KV cache.
 
 The port of ``repro/models/attention.py``.  The math is the JAX module's:
 K/V are never expanded to the query head count (every product carries an
@@ -13,14 +13,17 @@ a Python loop over the same chunks.
 ``window`` makes the KV loop *banded*: only the ceil((Cq+W)/Ck)+1 chunks
 that can be visible to a q chunk are touched — local attention is O(S*W).
 
-The JAX module's custom VJP (the flash backward) comes with the training
-slice, as a ``torch.autograd.Function`` over the same chunking.
+The JAX module's custom VJP is :class:`_Flash`, a
+``torch.autograd.Function`` over the same chunking: the forward also
+returns each row's log-sum-exp and saves ``(q, k, v, out, lse)``; the
+backward recomputes every tile's scores from them (differentiating the
+chunk loop itself would keep every tile's softmax statistics alive).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -75,50 +78,94 @@ def chunked_attention(
     q_offset: int = 0, q_chunk: int = 512, kv_chunk: int = 1024,
 ):  # fmt: skip
     """q: [B, Sq, H, D]; k, v: [B, Sk, KVH, D] with H % KVH == 0."""
+    q, k, v, grid = _pad(q, k, v, causal, window, q_offset, q_chunk, kv_chunk)
+    return _Flash.apply(q, k, v, grid)[:, : grid.Sq]
+
+
+def _pad(q, k, v, causal, window, q_offset, q_chunk, kv_chunk):
+    """q, k and v padded to whole chunks, and the call's :class:`_Grid`."""
     B, Sq, H, D = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
-    G = H // KVH
     q_chunk = min(q_chunk, Sq)
     kv_chunk = min(kv_chunk, Sk)
-    nq = -(-Sq // q_chunk)
-    nk = -(-Sk // kv_chunk)
-    qp = nq * q_chunk - Sq
-    kp = nk * kv_chunk - Sk
+    qp = -(-Sq // q_chunk) * q_chunk - Sq
+    kp = -(-Sk // kv_chunk) * kv_chunk - Sk
     if qp:
         q = F.pad(q, (0, 0, 0, 0, 0, qp))
     if kp:
         k = F.pad(k, (0, 0, 0, 0, 0, kp))
         v = F.pad(v, (0, 0, 0, 0, 0, kp))
-    out = _flash_forward(q, k, v, causal, window, q_offset, q_chunk, kv_chunk, Sk, G)
-    return out[:, :Sq]
+    return q, k, v, _Grid(causal, window, q_offset, q_chunk, kv_chunk, Sq, Sk, H // KVH)
 
 
-def _flash_forward(q, k, v, causal, window, q_offset, q_chunk, kv_chunk, Sk, G):
-    """The JAX module's ``_flash`` forward (``fwd_impl``) on padded q, k, v."""
-    banded = window is not None
+class _Grid(NamedTuple):
+    """The static configuration of one flash call (the JAX factory's closure)."""
+
+    causal: bool
+    window: Optional[int]
+    q_offset: int
+    q_chunk: int
+    kv_chunk: int
+    Sq: int
+    Sk: int
+    G: int
+
+    def split(self, q, k, v):
+        """qc: [nq, B, KVH, G, Cq, D]; kc, vc: [nk, B, KVH, Ck, D]."""
+        B, Sqp, H, D = q.shape
+        KVH = k.shape[2]
+        nq, nk = Sqp // self.q_chunk, k.shape[1] // self.kv_chunk
+        qc = q.reshape(B, nq, self.q_chunk, KVH, self.G, D).permute(1, 0, 3, 4, 2, 5)
+        kc = k.reshape(B, nk, self.kv_chunk, KVH, D).permute(1, 0, 3, 2, 4)
+        vc = v.reshape(B, nk, self.kv_chunk, KVH, D).permute(1, 0, 3, 2, 4)
+        return qc, kc, vc, nq, nk
+
+    def rows(self, x, B, nq):
+        """A per-row tensor [B, nq*Cq, KVH, G, ...] as [nq, B, KVH, G, Cq, ...]."""
+        x = x.reshape(B, nq, self.q_chunk, *x.shape[2:])
+        return x.permute(1, 0, 3, 4, 2, *range(5, x.dim()))
+
+    def unrows(self, x):
+        """The inverse of :meth:`rows`: [nq, B, KVH, G, Cq, ...] -> [B, nq*Cq, KVH, G, ...]."""
+        nq, B, KVH, G, Cq = x.shape[:5]
+        x = x.permute(1, 0, 4, 2, 3, *range(5, x.dim()))
+        return x.reshape(B, nq * Cq, KVH, G, *x.shape[5:])
+
+    def tiles(self, qi, nk):
+        """The KV tiles of q chunk ``qi``: ``(kj_eff, in_range)`` per step of
+        the JAX module's inner scan (banded: the window's chunks, the index
+        clipped to ``nk - 1``)."""
+        banded = self.window is not None
+        nk_band = _band_params(banded, nk, self.q_chunk, self.kv_chunk, self.window)
+        first = 0
+        if banded:
+            first = max((self.q_offset + qi * self.q_chunk - self.window) // self.kv_chunk, 0)
+        for kj in range(nk_band):
+            yield min(max(first + kj, 0), nk - 1), first + kj < nk
+
+    def mask(self, qi, kj_eff, in_range, device):
+        return _tile_mask(qi, kj_eff, in_range, self.causal, self.window, self.q_offset,
+                          self.q_chunk, self.kv_chunk, self.Sk, device)  # fmt: skip
+
+
+def _flash_forward(q, k, v, grid: _Grid, with_lse: bool = True):
+    """The JAX module's ``_flash`` forward (``fwd_impl``) on padded q, k, v:
+    returns ``out`` [B, Sqp, H, D] and the rows' log-sum-exp ``lse``
+    [B, Sqp, KVH, G] (``inf`` where a row sees no key), or ``None`` in its
+    place without ``with_lse`` (the JAX primal, where XLA drops it)."""
     B, Sqp, H, D = q.shape
-    KVH = k.shape[2]
-    nq = Sqp // q_chunk
-    nk = k.shape[1] // kv_chunk
-    # qc: [nq, B, KVH, G, Cq, D]; kc, vc: [nk, B, KVH, Ck, D]
-    qc = q.reshape(B, nq, q_chunk, KVH, G, D).permute(1, 0, 3, 4, 2, 5)
-    kc = k.reshape(B, nk, kv_chunk, KVH, D).permute(1, 0, 3, 2, 4)
-    vc = v.reshape(B, nk, kv_chunk, KVH, D).permute(1, 0, 3, 2, 4)
-    nk_band = _band_params(banded, nk, q_chunk, kv_chunk, window)
+    qc, kc, vc, nq, nk = grid.split(q, k, v)
+    KVH, G, Cq = k.shape[2], grid.G, grid.q_chunk
     scale = weak_scalar(1.0 / math.sqrt(D), q)
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qblk = (qc[qi] * scale).float()  # [B,KVH,G,Cq,D]
-        m = torch.full((B, KVH, G, q_chunk), -math.inf, dtype=torch.float32, device=q.device)
+        m = torch.full((B, KVH, G, Cq), -math.inf, dtype=torch.float32, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros((*m.shape, D), dtype=torch.float32, device=q.device)
-        first = max((q_offset + qi * q_chunk - window) // kv_chunk, 0) if banded else 0
-        for kj in range(nk_band):
-            in_range = first + kj < nk
-            kj_eff = min(max(first + kj, 0), nk - 1)
+        for kj_eff, in_range in grid.tiles(qi, nk):
             s = torch.einsum("bhgqd,bhkd->bhgqk", qblk, kc[kj_eff].float())
-            mask = _tile_mask(qi, kj_eff, in_range, causal, window, q_offset, q_chunk,
-                              kv_chunk, Sk, q.device)  # fmt: skip
+            mask = grid.mask(qi, kj_eff, in_range, q.device)
             s = torch.where(mask, s, -1e30)
             m_new = torch.maximum(m, s.amax(-1))
             r = torch.exp(m - m_new)
@@ -128,8 +175,78 @@ def _flash_forward(q, k, v, causal, window, q_offset, q_chunk, kv_chunk, Sk, G):
             acc = acc * r[..., None] + pv
             m = m_new
         outs.append((acc / torch.clamp_min(l[..., None], 1e-30)).to(q.dtype))
-    # outs: [nq, B, KVH, G, Cq, D] -> [B, Sq, H, D]
-    return torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, nq * q_chunk, H, D)
+        if with_lse:
+            lses.append(torch.where(l > 0, m + torch.log(torch.clamp_min(l, 1e-30)), math.inf))
+    out = grid.unrows(torch.stack(outs)).reshape(B, Sqp, H, D)
+    return out, grid.unrows(torch.stack(lses)) if with_lse else None
+
+
+def _flash_backward(q, k, v, out, lse, dout, grid: _Grid):
+    """The JAX module's ``attn_bwd``: (dq, dk, dv) in the inputs' dtypes.
+
+    Each tile's scores are recomputed from ``q * scale`` rounded to the
+    working dtype, as the forward computes them; ``p = exp(s - lse)``,
+    ``ds = p * (dp - D) * scale`` with ``D`` the rows' ``sum(dout * out)``
+    in float32; ``dk`` sums over the query group, and ``dk`` and ``dv`` use
+    the unscaled q and the float32 ``p``.  A banded tile whose chunk lies
+    past the end adds nothing (its mask is empty).
+    """
+    B, Sqp, H, D = q.shape
+    qc, kc, vc, nq, nk = grid.split(q, k, v)
+    KVH = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    q_scale = weak_scalar(scale, q)
+    doc = grid.rows(dout.reshape(B, Sqp, KVH, grid.G, D), B, nq)
+    lsec = grid.rows(lse, B, nq)
+    Drow = (dout.float() * out.float()).sum(-1)
+    Dc = grid.rows(Drow.reshape(B, Sqp, KVH, grid.G), B, nq)
+    dk_acc = torch.zeros((nk, B, KVH, grid.kv_chunk, D), dtype=torch.float32, device=q.device)
+    dv_acc = torch.zeros_like(dk_acc)
+    dqs = []
+    for qi in range(nq):
+        qblk = qc[qi].float()
+        qs = (qc[qi] * q_scale).float()
+        do = doc[qi].float()
+        lse_i, D_i = lsec[qi][..., None], Dc[qi][..., None]
+        dq_i = torch.zeros(qblk.shape, dtype=torch.float32, device=q.device)
+        for kj_eff, in_range in grid.tiles(qi, nk):
+            if not in_range:
+                continue
+            kblk, vblk = kc[kj_eff].float(), vc[kj_eff].float()
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qs, kblk)
+            mask = grid.mask(qi, kj_eff, in_range, q.device)
+            s = torch.where(mask, s, -1e30)
+            p = torch.exp(s - lse_i) * mask
+            dp = torch.einsum("bhgqd,bhkd->bhgqk", do, vblk)
+            ds = p * (dp - D_i) * scale
+            dq_i = dq_i + torch.einsum("bhgqk,bhkd->bhgqd", ds, kblk)
+            # sum over the query group
+            dk_acc[kj_eff] += torch.einsum("bhgqk,bhgqd->bhkd", ds, qblk)
+            dv_acc[kj_eff] += torch.einsum("bhgqk,bhgqd->bhkd", p, do)
+        dqs.append(dq_i)
+    dq = grid.unrows(torch.stack(dqs)).reshape(B, Sqp, H, D)
+    dk = dk_acc.permute(1, 0, 3, 2, 4).reshape(B, nk * grid.kv_chunk, KVH, D)
+    dv = dv_acc.permute(1, 0, 3, 2, 4).reshape(B, nk * grid.kv_chunk, KVH, D)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """GQA flash attention on padded q, k, v with the JAX module's custom
+    VJP: the backward recomputes each tile from ``(q, k, v, out, lse)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, grid: _Grid):
+        # serving (no input needs a gradient) skips the log-sum-exp
+        with_lse = any(ctx.needs_input_grad[:3])
+        out, lse = _flash_forward(q, k, v, grid, with_lse)
+        if with_lse:
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.grid = grid
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*_flash_backward(*ctx.saved_tensors, dout, ctx.grid), None)
 
 
 def attention_apply(

@@ -184,6 +184,12 @@ def tree_leaves(tree):
     return [leaf for _, leaf in tree_leaves_with_path(tree)]
 
 
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure over ``leaves``, in ``tree_leaves``'s order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 # ---------------------------------------------------------------------------
 # numerics
 # ---------------------------------------------------------------------------

@@ -15,19 +15,32 @@ that axis.  The JAX module pins activations' sharding with
 port drops those calls.
 
 The same assembly serves:
-  * ``forward``      — teacher-forced logits (VLM prefix included)
+  * ``forward``      — teacher-forced logits (VLM prefix included); under
+                       autograd (training) each group runs under
+                       ``cfg.remat_policy`` (:func:`apply_remat`)
   * ``prefill``      — forward + per-layer caches + last-position logits
   * ``decode_step``  — one token against the caches, updated in place
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import attention_apply, attention_decode, attn_init, init_kv_cache
-from .common import ModelConfig, dense_init, mlp_apply, mlp_init, rms_norm, tree_map
+from .common import (
+    ModelConfig,
+    dense_init,
+    mlp_apply,
+    mlp_init,
+    rms_norm,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 __all__ = [
     "init_params",
@@ -70,9 +83,10 @@ def _check_kind(kind: str) -> Tuple[str, Optional[str]]:
     return block, mlp
 
 
-def _group(tree, g: int):
-    """Group ``g`` of a stacked segment tree (views, not copies)."""
-    return tree_map(lambda a: a[g], tree)
+def _unbind(tree, n: int):
+    """The ``n`` groups of a stacked segment tree (views, not copies)."""
+    parts = [t.unbind(0) for t in tree_leaves(tree)]
+    return [tree_unflatten(tree, [p[g] for p in parts]) for g in range(n)]
 
 
 def _stack(trees):
@@ -142,19 +156,65 @@ def _apply_block(p, x, kind: str, cfg: ModelConfig, *, collect_cache: bool):
     return x, cache, aux
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep the outputs of matrix products
+    without batch dimensions (every linear layer), recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def apply_remat(fn, policy: str):
+    """Wrap a group body with the configured rematerialisation policy:
+    ``"none"`` keeps every activation, ``"nothing"`` recomputes the whole
+    body in the backward (``jax.checkpoint``), ``"dots"`` keeps the linear
+    layers' outputs (``dots_with_no_batch_dims_saveable``)."""
+    if policy == "none":
+        return fn
+    if policy == "nothing":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots),
+        )  # fmt: skip
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
 def _run_segments(params, x, cfg: ModelConfig, *, collect_cache: bool):
-    """Each segment's groups in order. Returns (x, caches per segment, total aux)."""
+    """Each segment's groups in order. Returns (x, caches per segment, total aux).
+
+    Each group runs under ``cfg.remat_policy`` where autograd records it
+    (training); a forward that records nothing (serving) runs it as is."""
     caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for s, (pattern, n_groups) in enumerate(cfg.segments):
-        seg_caches = []
-        for g in range(n_groups):
-            gp = _group(params["segments"][s], g)
+
+        def group_body(x, aux, gp, _pattern=pattern):
             cache_out = {}
-            for j, kind in enumerate(pattern):
+            for j, kind in enumerate(_pattern):
                 x, c, a = _apply_block(gp[f"pos{j}"], x, kind, cfg, collect_cache=collect_cache)
-                aux_total = aux_total + a
+                aux = aux + a
                 cache_out[f"pos{j}"] = c
+            return x, aux, cache_out
+
+        remat_body = apply_remat(group_body, cfg.remat_policy)
+        seg = params["segments"][s]
+        # one view per group from a single unbind: the backward stacks the
+        # groups' gradients once instead of adding a full-size zero tensor
+        # per group
+        groups = _unbind(seg, n_groups)
+        recording = torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad for t in tree_leaves(seg))
+        )
+        body = remat_body if recording else group_body
+        seg_caches = []
+        for gp in groups:
+            x, aux_total, cache_out = body(x, aux_total, gp)
             seg_caches.append(cache_out)
         caches.append(_stack(seg_caches) if collect_cache else None)
     return x, caches, aux_total
@@ -220,9 +280,7 @@ def decode_step(params, token, caches, cache_len, cfg: ModelConfig):
     """
     x = params["embed"][token]  # [B,1,D]
     for s, (pattern, n_groups) in enumerate(cfg.segments):
-        for g in range(n_groups):
-            gp = _group(params["segments"][s], g)
-            gc = _group(caches[s], g)
+        for gp, gc in zip(_unbind(params["segments"][s], n_groups), _unbind(caches[s], n_groups)):
             for j, kind in enumerate(pattern):
                 block, mlp = _check_kind(kind)
                 p = gp[f"pos{j}"]

@@ -4,8 +4,9 @@
   leaves ``jax`` and every ``repro`` module out of ``sys.modules``, and
   builds nothing.
 * The port's ``core``, ``engines``, ``kernels``, ``core.engine``, ``serve``,
-  ``core.sampling``, ``models``, ``configs`` and ``train`` export the JAX
-  package's names, but for the documented differences.
+  ``core.sampling``, ``models``, ``configs``, ``train`` and ``optim`` export
+  the JAX package's names, but for the documented differences; ``train``'s
+  and ``optim``'s take the JAX package's parameters.
 * An engine built with the default device raises a clear error on a host
   without a CUDA device instead of falling back to the CPU.
 """
@@ -69,6 +70,9 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
         "repro_torch.configs.llama32_1b",
         "repro_torch.train",
         "repro_torch.train.step",
+        "repro_torch.train.loss",
+        "repro_torch.optim",
+        "repro_torch.optim.adamw",
     ):
         assert m in res["modules"]
     assert list(tmp_path.iterdir()) == []  # importing builds no kernel
@@ -132,8 +136,7 @@ def test_kernel_wrapper_rejects_other_devices():
 #: the JAX package's jitted pair advance (``advance_pair``,
 #: ``pair_advance_impl``) is the port's ``pair_advance_ref``; ``WALK_TILE``
 #: and ``pair_advance_kernel`` are Pallas; ``resolve_device``, ``BlockView``
-#: and ``ResidentPair`` are exported by the port alone; ``train``'s loss and
-#: train step come with the port's training slice
+#: and ``ResidentPair`` are exported by the port alone
 _EXPORT_DIFFS = [
     ("core", {"advance_pair"}, {"pair_advance_ref", "BlockView", "ResidentPair"}),
     ("engines", {"advance_pair", "pair_advance_impl"}, {"pair_advance_ref", "resolve_device"}),
@@ -143,7 +146,8 @@ _EXPORT_DIFFS = [
     ("core.sampling", set(), set()),
     ("models", set(), set()),
     ("configs", set(), set()),
-    ("train", {"lm_loss", "make_loss_fn", "make_train_step"}, set()),
+    ("train", set(), set()),
+    ("optim", set(), set()),
 ]
 
 _EXPORTS_PROBE = r"""
@@ -180,6 +184,43 @@ def test_port_exports_match_jax_but_for_documented_differences():
         jax_names, port_names = map(set, res[pkg])
         assert jax_names - port_names == jax_only, pkg
         assert port_names - jax_names == port_only, pkg
+
+
+_SIGNATURES_PROBE = r"""
+import importlib, inspect, json, sys
+
+def params(obj):  # (name, kind, default) of each parameter; annotations differ by class
+    return [[p.name, p.kind.name, repr(p.default)]
+            for p in inspect.signature(obj).parameters.values()]
+
+out = {}
+for pkg in sys.argv[1:]:
+    jax_mod = importlib.import_module("repro." + pkg)
+    port_mod = importlib.import_module("repro_torch." + pkg)
+    out[pkg] = {name: [params(getattr(jax_mod, name)), params(getattr(port_mod, name))]
+                for name in jax_mod.__all__}
+print(json.dumps(out))
+"""
+
+
+def test_train_and_optim_signatures_match_jax():
+    """Every exported name of ``train`` and ``optim`` takes the JAX
+    package's parameters: the same names, kinds and defaults, in order (no
+    ``device`` keyword or ``torch.Generator`` seed is needed there)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-c", _SIGNATURES_PROBE, "train", "optim"],
+        capture_output=True, text=True, env=env, check=True,
+    ).stdout  # fmt: skip
+    import json
+
+    res = json.loads(out.strip().splitlines()[-1])
+    assert sorted(res["train"]) == [
+        "lm_loss", "make_decode_step", "make_loss_fn", "make_prefill_step", "make_train_step",
+    ]  # fmt: skip
+    for pkg, names in res.items():
+        for name, (jax_params, port_params) in names.items():
+            assert port_params == jax_params, f"{pkg}.{name}"
 
 
 def test_core_reexports_the_storage_layer_and_the_engine_shim():
