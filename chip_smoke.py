@@ -84,7 +84,24 @@ Phases (each raises on failure, so the script exits non-zero):
    batch, every loss finite and the last below the first; step time,
    tokens/s, the bound, peak memory, kernels per step and the card's idle
    share, and one microbatch's gradients and one optimiser update timed
-   apart.  The phase launches neither kernel.
+   apart.  The phase launches neither kernel;
+9. LM harness — ``repro_torch.data``, ``checkpoint``, ``runtime`` and
+   ``launch.train``: (9a) tests/test_checkpoint_fault.py's crash -> resume
+   on the card (the reduced llama, 12 steps, a checkpoint every 4, a crash
+   at step 9, resumed from the newest committed step; the finished
+   parameters within 1e-6 of an uninterrupted run's), and the
+   uninterrupted run's checkpoint restored into a CPU tree, bitwise;
+   (9b) ``python -m repro_torch.launch.train`` in process at llama3.2-1b's
+   published widths (``--graph-vertices 50000 --batch 8 --seq 512
+   --microbatches 2``): the launcher's corpus through the CUDA pair advance
+   bitwise equal to the plain advance's; 4 steps on a corpus the kernel
+   generates, a 17.30 GB checkpoint, then ``--steps 6`` resumed from step 4
+   with the saved cursor; the step-4 checkpoint bitwise equal to the state
+   the first run left; the resumed losses against steps 4-5 run in process
+   from that state; the corpus seconds and launches, the step median,
+   the snapshot, save and restore seconds, peak memory and losses.  The
+   checkpoints go to ``.lm_harness_ckpt/`` in the checkout, which must hold
+   two of them, and are deleted at the end of the phase.
 
 There is no CPU fallback.
 
@@ -158,6 +175,30 @@ FLASH_BF16_TOL = 2.0**-6
 #: 8b: TRAIN_BATCH sequences of TRAIN_SEQ tokens, a warm-up step, then
 #: TRAIN_STEPS timed steps on the same batch
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 5
+#: the LM harness phase (9).  9a is tests/test_checkpoint_fault.py's crash ->
+#: resume on the card: the reduced llama, 64 walks of 17 vertices below 200
+#: from default_rng(0), batches(4, 16, seed=7), a checkpoint every 4 steps,
+#: 12 steps, a crash at step 9; the finished parameters within the JAX
+#: test's atol of the uninterrupted run's (the card's scatter-adds in the
+#: backward are not deterministic, so not bitwise)
+HARNESS_WALKS, HARNESS_STEPS, HARNESS_CRASH, HARNESS_TOL = (64, 17), 12, 9, 1e-6
+#: 9b: ``python -m repro_torch.launch.train`` at llama3.2-1b's published
+#: widths, in process: a corpus of 2 walks of 32 steps per vertex of a
+#: 50,000-vertex graph (generated on the card; cut from 100,000 when the
+#: plain advance's corpus joined the phase), 8 x 512 tokens in 2
+#: microbatches (phase 8b's shape), 4 steps, then 6 resumed from step 4;
+#: the checkpoints go to HARNESS_DIR inside the checkout and are deleted
+HARNESS_ARGV = ["--arch", LM_ARCH, "--graph-vertices", "50000", "--batch", "8", "--seq", "512",
+                "--microbatches", "2"]  # fmt: skip
+HARNESS_FIRST, HARNESS_SECOND = 4, 6
+#: the resumed run's losses at steps 4 and 5 against steps 4 and 5 run in
+#: process from the first run's state (no checkpoint between): relative
+#: gap.  Step 4's loss comes from the same bits; step 5's from an update
+#: whose backward has the card's scatter-adds, which are not deterministic,
+#: rounded to bf16 parameters.  The first run's losses differ by ~3% from
+#: batch to batch
+HARNESS_LOSS_RTOL = 1e-3
+HARNESS_DIR = ROOT / ".lm_harness_ckpt"
 #: the bucket histogram's shapes (phase 3b): the main path's 1M walks,
 #: padded to the tile, over its 16 blocks and two larger bucket counts
 HIST_N, HIST_NBS = 1_048_576, (16, 4096, 65536)
@@ -1335,6 +1376,303 @@ def phase_lm_train(dev):
     return out
 
 
+def _bits(t):
+    """``t`` viewed as integers of its element's width, for bitwise equality."""
+    import torch
+
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def _same_bits(got: dict, want: dict) -> list:
+    """The keys of two ``{key: tensor}`` maps whose dtype, shape or bits
+    differ (or that one map lacks)."""
+    bad = sorted(set(got) ^ set(want))
+    for key in sorted(set(got) & set(want)):
+        g, w = got[key], want[key].to(got[key].device)
+        if g.dtype != w.dtype or g.shape != w.shape or not bool((_bits(g) == _bits(w)).all()):
+            bad.append(key)
+    return bad
+
+
+class _Tee:
+    """Standard output that is also kept, to read what a launcher printed."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_harness(dev):
+    """Phase 9: the LM training harness (9a the reduced llama's crash and
+    resume on the card; 9b the train launcher at llama3.2-1b's published
+    widths: walks -> train -> checkpoint -> resume)."""
+    import contextlib
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import ckpt as ckpt_mod
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core import BiBlockEngine, erdos_renyi, partition_into_n_blocks, rwnv_task
+    from repro_torch.data import WalkCorpus
+    from repro_torch.kernels.bucket_hist import bucket_hist_kernel
+    from repro_torch.kernels.pair_advance import fused_advance_pair
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model_init
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import AdamWState, OptConfig, adamw_init
+    from repro_torch.runtime import FailureInjector, ResilientTrainer, fault
+    from repro_torch.train import make_train_step
+
+    torch.cuda.empty_cache()
+    out = {}
+    t_phase = time.perf_counter()
+    if HARNESS_DIR.exists():
+        shutil.rmtree(HARNESS_DIR)
+    HARNESS_DIR.mkdir()
+    try:
+        # 9a: crash -> resume of the reduced llama on the card
+        cfg = reduced_config(LM_ARCH)
+        walks = np.random.default_rng(0).integers(0, 200, HARNESS_WALKS).astype(np.int32)
+        corpus = WalkCorpus.from_walks(walks, 200)
+        batches = lambda cursor=0: corpus.batches(4, 16, cursor=cursor, epochs=None, seed=7)
+
+        def trainer(name, fail_at=()):
+            params = model_init(0, cfg, device=dev)  # each run its own copy
+            step = make_train_step(cfg, OptConfig(lr=1e-3, total_steps=100))
+            return params, adamw_init(params), ResilientTrainer(
+                train_step=step, ckpt_dir=HARNESS_DIR / name, ckpt_every=4,
+                injector=FailureInjector(fail_at),
+            )  # fmt: skip
+
+        p0, o0, tr = trainer("uninterrupted")
+        p_ref, o_ref, _ = tr.run(p0, o0, batches(), num_steps=HARNESS_STEPS)
+        p1, o1, tr2 = trainer("crashed", fail_at=(HARNESS_CRASH,))
+        crashed = None
+        try:
+            tr2.run(p1, o1, batches(), num_steps=HARNESS_STEPS)
+        except RuntimeError as e:  # the injected crash, and nothing else
+            if "injected failure" not in str(e):
+                raise
+            crashed = str(e)
+        if crashed is None:
+            raise AssertionError("phase 9a: the injected failure did not fire")
+        p_r, o_r, start, cursor = tr2.resume(p1, o1)
+        tr2.injector = None
+        p_done, o_done, _ = tr2.run(p_r, o_r, batches(cursor), num_steps=HARNESS_STEPS,
+                                    start_step=start)  # fmt: skip
+        flat_ref, flat_done = ckpt_mod._flatten(p_ref), ckpt_mod._flatten(p_done)
+        gap = max(float((flat_done[k].float() - flat_ref[k].float()).abs().max()) for k in flat_ref)
+        # the uninterrupted run's last checkpoint, restored into a CPU tree
+        on_cpu = lambda t: tree_map(lambda a: torch.zeros_like(a, device="cpu"), t)
+        cpu_like = {"params": on_cpu(p_ref), "opt_state": AdamWState(
+            o_ref.step.cpu(), on_cpu(o_ref.master), on_cpu(o_ref.m), on_cpu(o_ref.v))}
+        got, extra = fault.restore_checkpoint(HARNESS_DIR / "uninterrupted", cpu_like)
+        got = ckpt_mod._flatten(got)
+        want = ckpt_mod._flatten({"params": p_ref, "opt_state": o_ref})
+        out["9a"] = dict(
+            arch=cfg.name, dtype=str(cfg.dtype), steps=HARNESS_STEPS, crash=crashed,
+            resumed_at=start, cursor=cursor, max_param_gap=gap, tol=HARNESS_TOL,
+            cpu_restore=dict(step=extra["step"], leaves=len(want),
+                             on_cpu=all(t.device.type == "cpu" for t in got.values()),
+                             not_bitwise=_same_bits(got, want)),
+        )  # fmt: skip
+        log(f"[lm-harness] 9a {cfg.name} {cfg.dtype} on the card: {HARNESS_STEPS} steps "
+            f"uninterrupted, then a crash at step {HARNESS_CRASH} ({crashed!r}), resumed at "
+            f"step {start} (cursor {cursor}): largest parameter gap {gap:.3g} (atol "
+            f"{HARNESS_TOL}); step {extra['step']}'s checkpoint restored into a CPU tree: "
+            f"{len(want)} leaves, bitwise except "
+            f"{out['9a']['cpu_restore']['not_bitwise']}")  # fmt: skip
+        del p0, o0, p_ref, o_ref, p1, o1, p_r, o_r, p_done, o_done, got, want, flat_ref, flat_done
+        if start not in (4, 8) or not gap <= HARNESS_TOL:
+            raise AssertionError(f"phase 9a: resumed at {start}, gap {gap} > {HARNESS_TOL}")
+        if out["9a"]["cpu_restore"]["not_bitwise"] or not out["9a"]["cpu_restore"]["on_cpu"]:
+            raise AssertionError(f"phase 9a: CPU restore: {out['9a']['cpu_restore']}")
+
+        # 9b: the launcher at full width
+        full = get_config(LM_ARCH)
+        state_bytes = full.param_count() * (full.dtype.itemsize + 3 * 4)
+        disk = shutil.disk_usage(HARNESS_DIR)
+        log(f"[lm-harness] 9b disk at {HARNESS_DIR}: {disk.free:,} bytes free of {disk.total:,}; "
+            f"two checkpoints need {2 * state_bytes:,} ({full.param_count():,} parameters x "
+            f"({full.dtype.itemsize} + 3 x 4) bytes each)")  # fmt: skip
+        if disk.free < 2 * state_bytes * 1.05:
+            raise AssertionError(f"phase 9b: {disk.free:,} bytes free at {HARNESS_DIR} cannot "
+                                 f"hold two checkpoints of {state_bytes:,} bytes")  # fmt: skip
+        ckpt_dir = HARNESS_DIR / "launcher"
+        argv = [*HARNESS_ARGV, "--ckpt-dir", str(ckpt_dir), "--device", dev.type]
+        args = launch_train.parse_args(argv)
+
+        # the launcher's corpus (its graph, blocks and task) through the
+        # kernel and through the plain advance: equal, bit for bit
+        def corpus_run(impl):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = erdos_renyi(args.graph_vertices, args.graph_vertices * 8, seed=0)
+            res = BiBlockEngine(
+                partition_into_n_blocks(g, 6), rwnv_task(walks_per_vertex=2, length=32),
+                record_walks=True, device=dev, advance_impl=impl,
+            ).run()  # fmt: skip
+            corpus = WalkCorpus.from_walks(res.corpus, g.num_vertices)
+            torch.cuda.synchronize()
+            return corpus, res.corpus, time.perf_counter() - t0
+
+        before = fused_advance_pair.launches
+        corpus, walks_cuda, corpus_s = corpus_run("cuda")
+        compare_launches = fused_advance_pair.launches - before
+        _, walks_plain, plain_s = corpus_run("torch")
+        corpus_equal = walks_cuda.shape == walks_plain.shape and bool((walks_cuda == walks_plain).all())
+        log(f"[lm-harness] 9b the launcher's corpus ({args.graph_vertices:,} vertices, 6 blocks, "
+            f"2 walks of 32 steps per vertex): {walks_cuda.shape[0]:,} walks; the kernel "
+            f"{corpus_s:.3f} s ({compare_launches} launches), the plain advance {plain_s:.3f} s; "
+            f"bitwise equal: {corpus_equal}")  # fmt: skip
+        del walks_plain
+        if not corpus_equal:
+            raise AssertionError("phase 9b: the kernel's corpus differs from the plain advance's")
+
+        def launch(steps):
+            """One launcher run, as a user calls it, with its counts and the
+            host clock at each step's metrics."""
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fused_advance_pair.launches = 0
+            bucket_hist_kernel.launches = 0
+            seen = []
+            tee = _Tee(sys.stdout)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(tee):
+                params, opt, info = launch_train.main(
+                    [*argv, "--steps", str(steps)],
+                    on_metrics=lambda s, m: seen.append((s, m, time.perf_counter())),
+                )  # fmt: skip
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+            run = dict(
+                steps=steps, wall_s=t_end - t0, launches=fused_advance_pair.launches,
+                bucket_hist_launches=bucket_hist_kernel.launches,
+                start_step=seen[0][0], end_step=info["step"],
+                step_s=[m["step_time"] for _, m, _ in seen], losses=[m["loss"] for _, m, _ in seen],
+                # the final checkpoint's save_async + wait, from the last
+                # step's metrics to the launcher's return
+                final_save_s=t_end - seen[-1][2], stragglers=len(info["stragglers"]),
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                printed="".join(tee.lines).splitlines(),
+            )  # fmt: skip
+            return run, params, opt
+
+        first, params, opt = launch(HARNESS_FIRST)
+        # the in-place step left the state holding step 4's values: the
+        # committed checkpoint must be them, bit for bit
+        saved = ckpt_dir / f"step_{HARNESS_FIRST:09d}"
+        state = {"params": params, "opt_state": opt}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, extra = fault.restore_checkpoint(ckpt_dir, state, step=HARNESS_FIRST)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        flat = ckpt_mod._flatten(state)
+        first.update(saved_extra=extra, not_bitwise=_same_bits(ckpt_mod._flatten(got), flat),
+                     leaves=len(json.loads((saved / "manifest.json").read_text())["arrays"]),
+                     checkpoint_bytes=sum(p.stat().st_size for p in saved.rglob("*")))  # fmt: skip
+        del got
+        # save_async's snapshot (a host copy of every leaf) of the same state
+        t0 = time.perf_counter()
+        snap = {k: t.detach().to("cpu", copy=True) for k, t in flat.items()}
+        snapshot_s = time.perf_counter() - t0
+        del snap, flat, state
+        # the uninterrupted continuation: steps 4 and 5 from this state on
+        # the 5th and 6th batches of a stream that starts at cursor 0
+        stream = corpus.batches(args.batch, args.seq, seed=1)
+        for _ in range(HARNESS_FIRST):
+            batch = next(stream)
+        stream_cursor = batch["cursor"]
+        step_fn = make_train_step(full, OptConfig(lr=1e-3, warmup_steps=10,
+                                                  total_steps=HARNESS_SECOND),
+                                  microbatches=args.microbatches)  # fmt: skip
+        continued = []
+        for _ in range(HARNESS_FIRST, HARNESS_SECOND):
+            batch = next(stream)
+            batch.pop("cursor"), batch.pop("epoch", None)
+            params, opt, m = step_fn(params, opt, batch)
+            continued.append(float(m["loss"].item()))
+        del params, opt, m, batch, stream, corpus, step_fn
+        second, params, opt = launch(HARNESS_SECOND)
+        del params, opt
+        torch.cuda.empty_cache()
+        loss_gap = [abs(a - b) for a, b in zip(second["losses"], continued)]
+        median = lambda xs: sorted(xs)[len(xs) // 2]
+        gb = first["checkpoint_bytes"] / 1e9
+        out["9b"] = dict(
+            argv=argv, state_bytes=state_bytes, runs=[first, second],
+            corpus=dict(walks=int(walks_cuda.shape[0]), kernel_s=corpus_s, plain_s=plain_s,
+                        launches=compare_launches, bitwise_equal=corpus_equal),
+            step_ms_median=median(first["step_s"][1:]) * 1e3,
+            resumed_step_ms=[x * 1e3 for x in second["step_s"]],
+            snapshot_s=snapshot_s, snapshot_gb_s=gb / snapshot_s,
+            final_save_s=[r["final_save_s"] for r in (first, second)],
+            final_save_gb_s=[gb / r["final_save_s"] for r in (first, second)],
+            restore_s=restore_s, restore_gb_s=gb / restore_s,
+            continued_losses=continued, loss_gap=loss_gap, loss_rtol=HARNESS_LOSS_RTOL,
+            stream_cursor=stream_cursor,
+            launches=first["launches"] + second["launches"],
+            bucket_hist_launches=first["bucket_hist_launches"] + second["bucket_hist_launches"],
+        )  # fmt: skip
+        lm = out["9b"]
+        log(f"[lm-harness] 9b launcher runs: {first['launches']} pair_advance launches (first "
+            f"run), {second['launches']} (second), each generating its corpus on the card")
+        log(f"[lm-harness] 9b step median over steps 1-{HARNESS_FIRST - 1} (host clock, the "
+            f"trainer's step_time): {lm['step_ms_median']:.3f} ms; all "
+            f"{json.dumps([round(x * 1e3, 3) for x in first['step_s']])} ms; resumed steps "
+            f"{json.dumps([round(x, 3) for x in lm['resumed_step_ms']])} ms")  # fmt: skip
+        log(f"[lm-harness] 9b checkpoint: {first['checkpoint_bytes']:,} bytes in {first['leaves']} "
+            f"files; snapshot (host copy of every leaf) {snapshot_s:.3f} s "
+            f"({lm['snapshot_gb_s']:.3f} GB/s); final save (save_async to wait) at steps "
+            f"{HARNESS_FIRST} and {HARNESS_SECOND}: "
+            f"{json.dumps([round(x, 3) for x in lm['final_save_s']])} s, "
+            f"{json.dumps([round(x, 3) for x in lm['final_save_gb_s']])} GB/s; restore "
+            f"{restore_s:.3f} s ({lm['restore_gb_s']:.3f} GB/s)")  # fmt: skip
+        log(f"[lm-harness] 9b torch.cuda.max_memory_allocated: first run "
+            f"{first['max_memory_allocated']:,} bytes, second {second['max_memory_allocated']:,}")
+        log(f"[lm-harness] 9b losses: first run {json.dumps(first['losses'])}, resumed at step "
+            f"{second['start_step']} (saved {first['saved_extra']}, the stream's cursor after "
+            f"{HARNESS_FIRST} batches {stream_cursor}) {json.dumps(second['losses'])}, the "
+            f"uninterrupted continuation {json.dumps(continued)}: gaps {json.dumps(loss_gap)} "
+            f"(rtol {HARNESS_LOSS_RTOL}); step {HARNESS_FIRST}'s checkpoint against the "
+            f"in-memory state: {first['leaves']} leaves, bitwise except {first['not_bitwise']}")
+        log(f"[lm-harness] card: {card_line()}")
+        log(f"[lm-harness] phase 9: {time.perf_counter() - t_phase:.1f}s; kernel launches: "
+            f"pair_advance {lm['launches']}, bucket_hist {lm['bucket_hist_launches']}")  # fmt: skip
+        losses = first["losses"] + second["losses"] + continued
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"phase 9b: a loss is not finite: {losses}")
+        if f"resumed at step {HARNESS_FIRST}" not in second["printed"]:
+            raise AssertionError(f"phase 9b: the second run did not resume: {second['printed']}")
+        if (second["start_step"], stream_cursor) != (HARNESS_FIRST, first["saved_extra"]["cursor"]):
+            raise AssertionError(f"phase 9b: resumed at {second['start_step']}, saved "
+                                 f"{first['saved_extra']}, stream cursor {stream_cursor}")
+        if (first["end_step"], second["end_step"]) != (HARNESS_FIRST, HARNESS_SECOND):
+            raise AssertionError(f"phase 9b: ended at {first['end_step']}, {second['end_step']}")
+        if first["not_bitwise"]:
+            raise AssertionError(f"phase 9b: checkpoint differs: {first['not_bitwise']}")
+        if len(loss_gap) != HARNESS_SECOND - HARNESS_FIRST or not all(
+            gap <= HARNESS_LOSS_RTOL * abs(c) for gap, c in zip(loss_gap, continued)
+        ):
+            raise AssertionError(f"phase 9b: resumed losses {second['losses']} against the "
+                                 f"uninterrupted continuation {continued}")  # fmt: skip
+        if lm["launches"] == 0:
+            raise AssertionError("phase 9b: the launcher launched no pair_advance kernel")
+    finally:
+        shutil.rmtree(HARNESS_DIR, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1405,14 +1743,16 @@ def main(argv=None) -> int:
     serving = phase_serve(dev)
     lm = phase_lm(dev)
     lm_train = phase_lm_train(dev)
+    harness = phase_harness(dev)
     # ``launches`` counts the main paths only: the walk launcher, the
     # full-size hot-set server, LM serving and LM training (which run
-    # neither kernel);
+    # neither kernel), and the train launcher (its corpus's advances);
     # the LRU server and the launcher at its small defaults are listed
     # beside them in ``launches_by_path``
     def by_path(key):
         main = {"walk biblock+oracle": main_infos[0][key], "serve hot-set": serving["6b"]["hot"][key],
-                "lm serve": lm["7b"][key], "lm train": lm_train["8b"][key]}  # fmt: skip
+                "lm serve": lm["7b"][key], "lm train": lm_train["8b"][key],
+                "lm train launcher": harness["9b"][key]}  # fmt: skip
         other = {"serve lru": serving["6b"]["lru"][key], "serve launcher": serving["6c"][key]}
         return sum(main.values()), {**main, **other}
 
@@ -1443,7 +1783,7 @@ def main(argv=None) -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, variants=rows, bucket_hist=hist, kernel_tier=tier,
         whole_run=whole, other_engines=engines, main_runs=phases, serve=serving, lm=lm,
-        lm_train=lm_train, total_s=elapsed(),
+        lm_train=lm_train, lm_harness=harness, total_s=elapsed(),
     ), indent=1))  # fmt: skip
     log(f"[done] {elapsed():.1f}s")
     log(card)

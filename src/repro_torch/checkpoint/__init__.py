@@ -1,0 +1,10 @@
+from .ckpt import (
+    CheckpointManager,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
+
+__all__ = [
+    "CheckpointManager", "latest_step", "restore_checkpoint", "save_checkpoint",
+]

@@ -52,6 +52,11 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, *, microbatches: int = 1):
     loss_fn = make_loss_fn(cfg)
 
     def train_step(params, opt_state, batch):
+        # the corpus yields numpy batches, which the JAX step's ``jit``
+        # takes as they are: move them to the parameters' device (a no-op
+        # for a tensor already there)
+        device = tree_leaves(params)[0].device
+        batch = tree_map(lambda x: torch.as_tensor(x, device=device), batch)
         if microbatches == 1:
             (loss, metrics), grads = _value_and_grad(loss_fn, params, batch)
         else:
@@ -62,7 +67,7 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, *, microbatches: int = 1):
             mb = tree_map(split, batch)
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
                              params)  # fmt: skip
-            loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
+            loss = torch.zeros((), dtype=torch.float32, device=device)
             for i in range(microbatches):
                 (l, metrics), g = _value_and_grad(loss_fn, params, tree_map(lambda x: x[i], mb))
                 for acc, gi in zip(tree_leaves(grads), tree_leaves(g)):

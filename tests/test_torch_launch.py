@@ -7,9 +7,17 @@ header byte for byte, the same engines in the same order (``biblock`` and
 columns in every row — for all five engines, and with the disk graph
 backend, where the oracle keeps the RAM graph.  Tolerance: bitwise (the
 columns are compared as printed).
+
+The train launcher (``python -m repro_torch.launch.train --device cpu``)
+and the example twins (``examples/torch_port/train_lm_on_walks.py``,
+``examples/torch_port/quickstart.py``) print the JAX originals' lines but
+for what the wall clock or the random weights decide (losses, times), load
+neither ``jax`` nor ``repro``, and the launcher resumes from its own
+checkpoint and from the JAX launcher's.
 """
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -88,3 +96,93 @@ def test_profile_walk_covers_every_engine_of_the_run(capsys):
     assert "device" not in report  # --device cpu: no device half
     assert report["host"]["exec_s"] > 0
     assert report["host"]["run_s"] >= report["host"]["exec_s"]
+
+
+# ---------------------------------------------------------------------------
+# the train launcher and the example twins
+# ---------------------------------------------------------------------------
+
+#: runs a module (``-m`` style) or a script in a fresh interpreter, then
+#: prints whether ``jax`` or any ``repro`` module was loaded
+_RUN_PORT = r"""
+import runpy, sys
+target, sys.argv = sys.argv[1], sys.argv[1:]
+if target.endswith(".py"):
+    runpy.run_path(target, run_name="__main__")
+else:
+    runpy.run_module(target, run_name="__main__", alter_sys=True)
+leaked = [m for m in sys.modules if m in ("jax", "repro") or m.startswith(("jax.", "repro."))]
+print(f"leaked: {sorted(leaked)}")
+"""
+TRAIN = ["--reduced", "--graph-vertices", "200", "--batch", "2", "--seq", "8"]
+
+
+def _run(argv, port=True, timeout=300):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-c", _RUN_PORT] if port else [sys.executable]
+    out = subprocess.run(
+        [*cmd, *argv], capture_output=True, text=True, env=env, cwd=REPO, timeout=timeout,
+        check=True,
+    ).stdout.strip().splitlines()  # fmt: skip
+    if port:
+        assert out[-1] == "leaked: []"
+        out = out[:-1]
+    return out
+
+
+def _strip(lines, *patterns):
+    """The lines with what the wall clock or the weights decide taken out."""
+    for pat in patterns:
+        lines = [re.sub(pat, "#", line) for line in lines]
+    return lines
+
+
+def test_train_launcher_resumes_from_its_checkpoint(tmp_path):
+    ckpt = ["--ckpt-dir", str(tmp_path / "ckpt"), "--device", "cpu"]
+    first = _run(["repro_torch.launch.train", *TRAIN, "--steps", "3", *ckpt])
+    assert first[0] == "arch=llama3.2-1b-reduced devices=1"
+    assert first[1] == "corpus: 400 walks, vocab 201"
+    assert first[-1] == f"finished at step 3; checkpoints in {tmp_path / 'ckpt'}"
+    second = _run(["repro_torch.launch.train", *TRAIN, "--steps", "5", *ckpt])
+    assert second[2] == "resumed at step 3"
+    assert second[-1] == f"finished at step 5; checkpoints in {tmp_path / 'ckpt'}"
+    assert sorted(p.name for p in (tmp_path / "ckpt").glob("step_*")) == [
+        "step_000000003", "step_000000005",
+    ]  # fmt: skip
+
+
+def test_train_launcher_prints_the_jax_lines_and_resumes_a_jax_checkpoint(tmp_path):
+    """The JAX launcher and the port's print the same lines but for the
+    loss and the step time; the port resumes from the JAX launcher's
+    checkpoint (the shared on-disk format)."""
+    jdir, tdir = ["--ckpt-dir", str(tmp_path / "j")], ["--ckpt-dir", str(tmp_path / "t")]
+    want = _run(["-m", "repro.launch.train", *TRAIN, "--steps", "3", *jdir], port=False)
+    got = _run(["repro_torch.launch.train", *TRAIN, "--steps", "3", *tdir, "--device", "cpu"])
+    loss = (r"loss [0-9.]+ \([0-9]+ ms\)", r"checkpoints in .*")
+    assert len(got) == 4 and _strip(got, *loss) == _strip(want, *loss)
+    more = _run(["repro_torch.launch.train", *TRAIN, "--steps", "5", *jdir, "--device", "cpu"])
+    assert more[2] == "resumed at step 3" and more[-1].startswith("finished at step 5")
+
+
+def test_train_example_twin_matches_jax_example(tmp_path):
+    tiny = ["--tiny", "--steps", "3", "--vertices", "200", "--batch", "2", "--seq", "8"]
+    want = _run(["examples/train_lm_on_walks.py", *tiny, "--ckpt-dir", str(tmp_path / "j")],
+                port=False, timeout=600)  # fmt: skip
+    got = _run(["examples/torch_port/train_lm_on_walks.py", *tiny,
+                "--ckpt-dir", str(tmp_path / "t"), "--device", "cpu"])  # fmt: skip
+    clock = (r"in [0-9.]+s wall", r"loss [0-9.]+", r"[0-9]+ ms", r"\(first [0-9.]+\)")
+    assert len(got) == 6 and _strip(got, *clock) == _strip(want, *clock)
+    assert got[1].startswith("  800 walks x 10 steps in ") and got[1].endswith("(109 block I/Os)")
+    assert "params=0.4M" in got[3]
+
+
+def test_quickstart_twin_matches_jax_example():
+    """Every line equal but the simulated wall times (they hold the
+    measured advance time) and the speedup taken from them."""
+    small = ["--vertices", "400", "--blocks", "4", "--length", "6"]
+    want = _run(["examples/quickstart.py", *small], port=False, timeout=600)
+    got = _run(["examples/torch_port/quickstart.py", *small, "--device", "cpu",
+                "--advance", "torch"])  # fmt: skip
+    clock = (r"sim wall time : .*", r"GraSorw speedup: [0-9.]+x")
+    assert len(got) == 23 and _strip(got, *clock) == _strip(want, *clock)
+    assert any("top-8 vertices: [(" in line for line in got)
