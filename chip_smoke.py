@@ -102,6 +102,20 @@ Phases (each raises on failure, so the script exits non-zero):
    the snapshot, save and restore seconds, peak memory and losses.  The
    checkpoints go to ``.lm_harness_ckpt/`` in the checkout, which must hold
    two of them, and are deleted at the end of the phase.
+10. distributed — ``repro_torch.core.distributed.DistributedWalkEngine``
+   on ``torch.distributed``: (10a) NCCL, world size 1, a ``(1, 1)``
+   ``DeviceMesh``, phase 5's graph and task in one block, through the
+   kernel and through ``advance_impl="torch"``: the global arrays and
+   sweeps bitwise equal, the endpoint counts equal to phase 5's oracle, and
+   the kernel against its plain version on the advance's own inputs (the
+   first round's pair and lanes, the unrouted rows dead at prev -1),
+   bitwise; sweeps, rounds, launches, engine seconds, the ``exec_s``
+   share and the collective seconds; (10b) DIST_RANKS gloo ranks, spawned
+   processes sharing the card, a DIST_VERTICES-vertex graph in DIST_RANKS
+   blocks on a ``(1, DIST_RANKS)`` mesh through the kernel: every rank's
+   global arrays bitwise equal to a ``(1, 1)`` run of the same graph in one
+   block through the plain version.  Each child is bounded by
+   DIST_TIMEOUT seconds, and a failed child fails the phase.
 
 There is no CPU fallback.
 
@@ -199,6 +213,11 @@ HARNESS_FIRST, HARNESS_SECOND = 4, 6
 #: batch to batch
 HARNESS_LOSS_RTOL = 1e-3
 HARNESS_DIR = ROOT / ".lm_harness_ckpt"
+#: the distributed phase (10): 10a runs the main path's graph and task in
+#: one block; 10b runs DIST_RANKS gloo ranks on one card, DIST_VERTICES
+#: vertices in DIST_RANKS blocks; every child process and collective is
+#: bounded by DIST_TIMEOUT seconds
+DIST_VERTICES, DIST_RANKS, DIST_TIMEOUT = 250_000, 4, 300
 #: the bucket histogram's shapes (phase 3b): the main path's 1M walks,
 #: padded to the tile, over its 16 blocks and two larger bucket counts
 HIST_N, HIST_NBS = 1_048_576, (16, 4096, 65536)
@@ -1673,6 +1692,205 @@ def phase_harness(dev):
     return out
 
 
+def _dist_case(vertices: int, blocks: int):
+    """The main path's graph (the launcher's generator and seed) at
+    ``vertices`` in ``blocks`` blocks, and its task."""
+    from repro_torch.core import erdos_renyi, partition_into_n_blocks, rwnv_task
+
+    g = erdos_renyi(vertices, vertices * AVG_DEGREE // 2, seed=0)
+    task = rwnv_task(p=MAIN_P, q=MAIN_Q, walks_per_vertex=1, length=MAIN_LEN, seed=0)
+    return partition_into_n_blocks(g, blocks), task
+
+
+def _dist_run(bg, task, mesh, dev, impl, engine_cls=None):
+    """One distributed engine run, the launch counts set to 0 just before
+    and read just after.  Returns ``(result, info, engine)``."""
+    import torch
+
+    from repro_torch.core.distributed import DistributedWalkEngine
+    from repro_torch.kernels.bucket_hist import bucket_hist_kernel
+    from repro_torch.kernels.pair_advance import fused_advance_pair
+
+    torch.cuda.synchronize()
+    fused_advance_pair.launches = 0
+    bucket_hist_kernel.launches = 0
+    t0 = time.perf_counter()
+    eng = (engine_cls or DistributedWalkEngine)(bg, task, mesh, device=dev, advance_impl=impl)
+    res = eng.run()
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    exec_s = res["stats"].exec_time
+    info = dict(
+        backend=eng.backend, advance=impl, rank=eng.rank, block=eng.block, walks=len(res["cur"]),
+        sweeps=res["sweeps"], rounds=eng.rounds, advance_calls=eng.advance_calls,
+        launches=fused_advance_pair.launches, bucket_hist_launches=bucket_hist_kernel.launches,
+        engine_s=engine_s, exec_s=exec_s, exec_share=exec_s / engine_s,
+        collective_s=eng.collective_time, walk_ios=res["stats"].walk_ios,
+        steps_per_s=float(res["hop"].sum()) / engine_s,
+    )  # fmt: skip
+    return res, info, eng
+
+
+def _same_walks(a: dict, b: dict) -> list:
+    """The keys of the global walk arrays on which two runs differ."""
+    return [k for k in ("prev", "cur", "hop", "alive") if not (a[k] == b[k]).all()]
+
+
+def phase_distributed(dev, oracle_counts, src: str):
+    """Phase 10: the distributed half-ring engine on the card (10a, NCCL,
+    one rank) and across DIST_RANKS gloo ranks sharing it (10b)."""
+    import datetime
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.distributed import DistributedWalkEngine
+    from repro_torch.kernels.pair_advance import fused_advance_pair, pair_advance_ref
+
+    class Captured(DistributedWalkEngine):
+        """Keeps the first advance's inputs (the comparison run only)."""
+
+        def _advance_inputs(self, pair, recv):
+            got = super()._advance_inputs(pair, recv)
+            if not hasattr(self, "captured"):
+                self.captured = got
+            return got
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        tmp = Path(tmp)
+        dist.init_process_group("nccl", init_method=f"file://{tmp / 'rdzv'}", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+        try:
+            mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+            t0 = time.perf_counter()
+            bg, task = _dist_case(VERTICES, 1)
+            log(f"[dist] 10a graph built in {time.perf_counter() - t0:.1f}s: "
+                f"{VERTICES:,} vertices in 1 block")  # fmt: skip
+            res_c, info_c, _ = _dist_run(bg, task, mesh, dev, "cuda")
+            res_t, info_t, eng_t = _dist_run(bg, task, mesh, dev, "torch", Captured)
+            for info in (info_c, info_t):
+                log(f"[dist] 10a {json.dumps(info)}")
+            differ = _same_walks(res_c, res_t)
+            if differ or res_c["sweeps"] != res_t["sweeps"]:
+                raise AssertionError(f"phase 10a: kernel and plain runs differ on {differ}, "
+                                     f"sweeps {res_c['sweeps']} / {res_t['sweeps']}")  # fmt: skip
+            if res_c["alive"].any():
+                raise AssertionError(f"phase 10a: {int(res_c['alive'].sum())} walks left alive")
+            counts = np.bincount(res_c["cur"], minlength=VERTICES)
+            if not (counts == oracle_counts).all():
+                raise AssertionError("phase 10a: endpoint counts differ from phase 5's oracle")
+            if info_c["launches"] == 0 or info_c["launches"] != info_c["advance_calls"]:
+                raise AssertionError(f"phase 10a: {info_c['launches']} launches for "
+                                     f"{info_c['advance_calls']} advances")  # fmt: skip
+            # the kernel against its plain version on the engine's own
+            # inputs (these launches are not counted)
+            args, kwargs, rmask = eng_t.captured
+            saved = fused_advance_pair.launches
+            got = fused_advance_pair(*args, **kwargs)
+            want = pair_advance_ref(*args, **kwargs)
+            err = max_abs_err(want, got)
+            kernel_ms = cuda_ms(lambda: fused_advance_pair(*args, **kwargs), 3)
+            plain_ms = cuda_ms(lambda: pair_advance_ref(*args, **kwargs), 1)
+            fused_advance_pair.launches = saved
+            lanes_alive, prev_lane = args[13], args[10]
+            # phase 3's count at this path's shape: the pair and the lanes
+            # in (wid, prev, cur, hop i32 + alive), the lanes out + steps
+            nbytes = sum(t.numel() * t.element_size() for t in args[:14])
+            nbytes += rmask.numel() * (3 * 4 + 1) + 4
+            check = dict(
+                lanes=int(rmask.numel()), routed=int(rmask.sum()),
+                dead_at_prev_minus_1=int(((prev_lane == -1) & ~lanes_alive).sum()),
+                max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                steps=int(got[4]), bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            )  # fmt: skip
+            log(f"[dist] 10a kernel vs plain on the first advance's inputs: {json.dumps(check)}")
+            if err != 0 or check["dead_at_prev_minus_1"] == 0:
+                raise AssertionError(f"phase 10a: kernel vs plain version: {check}")
+            out["10a"] = dict(cuda=info_c, torch=info_t, kernel_check=check)
+            # 10b's reference: its graph in one block, through the plain version
+            bgb, taskb = _dist_case(DIST_VERTICES, 1)
+            ref_b, info_ref, _ = _dist_run(bgb, taskb, mesh, dev, "torch")
+            log(f"[dist] 10b reference (1, 1) {json.dumps(info_ref)}")
+        finally:
+            dist.destroy_process_group()
+
+        # 10b: DIST_RANKS gloo ranks, each a process on this card
+        t0 = time.perf_counter()
+        procs = []
+        try:
+            for r in range(DIST_RANKS):
+                with open(tmp / f"rank{r}.log", "w") as logf:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()), "--src", src,
+                         "--dist-child", str(r), str(tmp)],
+                        stdout=logf, stderr=subprocess.STDOUT,
+                    ))  # fmt: skip
+            deadline = time.perf_counter() + DIST_TIMEOUT
+            for p in procs:
+                p.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"phase 10b: a rank ran past {DIST_TIMEOUT} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            tails = {r: (tmp / f"rank{r}.log").read_text()[-3000:] for r in failed}
+            raise AssertionError(f"phase 10b: ranks {failed} failed: {tails}")
+        ranks = []
+        for r in range(DIST_RANKS):
+            info = json.loads((tmp / f"rank{r}.json").read_text())
+            res = dict(np.load(tmp / f"rank{r}.npz"))
+            differ = _same_walks(res, ref_b)
+            if differ:
+                raise AssertionError(f"phase 10b: rank {r} differs from the (1, 1) run on {differ}")
+            log(f"[dist] 10b rank {r} {json.dumps(info)}")
+            ranks.append(info)
+        if not all(i["launches"] > 0 for i in ranks):
+            raise AssertionError(f"phase 10b: a rank launched no kernel: {ranks}")
+        out["10b"] = dict(reference=info_ref, ranks=ranks, wall_s=time.perf_counter() - t0,
+                          launches=sum(i["launches"] for i in ranks),
+                          bucket_hist_launches=sum(i["bucket_hist_launches"] for i in ranks))
+    log(f"[dist] card: {card_line()}")
+    log(f"[dist] phase 10: {time.perf_counter() - t_phase:.1f}s; 10b {DIST_RANKS} ranks "
+        f"{out['10b']['wall_s']:.1f}s, launches {out['10b']['launches']}")  # fmt: skip
+    return out
+
+
+def dist_child(rank: int, tmp: str) -> int:
+    """One rank of phase 10b: joins the gloo group, runs its block of the
+    DIST_VERTICES graph through the kernel and writes the global arrays."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    tmp = Path(tmp)
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'rdzv_b'}", rank=rank,
+                            world_size=DIST_RANKS, timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+    try:
+        mesh = init_device_mesh("cpu", (1, DIST_RANKS), mesh_dim_names=("data", "model"))
+        bg, task = _dist_case(DIST_VERTICES, DIST_RANKS)
+        res, info, _ = _dist_run(bg, task, mesh, torch.device("cuda"), "cuda")
+    finally:
+        dist.destroy_process_group()
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    if leaked:
+        raise AssertionError(f"rank {rank} loaded {leaked}")
+    np.savez(tmp / f"rank{rank}.npz", **{k: res[k] for k in ("prev", "cur", "hop", "alive")})
+    (tmp / f"rank{rank}.json").write_text(json.dumps(info))
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1685,11 +1903,14 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=str(ROOT), help="checkout whose src/ holds the port")
     ap.add_argument("--out", default="kernels",
                     help="--kernels-only, --hist-sweep: the rows' file, OUT.json")  # fmt: skip
+    ap.add_argument("--dist-child", nargs=2, metavar=("RANK", "DIR"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU fallback", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(args.src).resolve() / "src"))
+    if args.dist_child:
+        return dist_child(int(args.dist_child[0]), args.dist_child[1])
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -1744,16 +1965,20 @@ def main(argv=None) -> int:
     lm = phase_lm(dev)
     lm_train = phase_lm_train(dev)
     harness = phase_harness(dev)
+    distributed = phase_distributed(dev, oracle_counts, args.src)
     # ``launches`` counts the main paths only: the walk launcher, the
     # full-size hot-set server, LM serving and LM training (which run
-    # neither kernel), and the train launcher (its corpus's advances);
-    # the LRU server and the launcher at its small defaults are listed
-    # beside them in ``launches_by_path``
+    # neither kernel), the train launcher (its corpus's advances) and the
+    # distributed engine at full size (10a); the LRU server, the launcher
+    # at its small defaults and the 4-rank gloo run are listed beside them
+    # in ``launches_by_path``
     def by_path(key):
         main = {"walk biblock+oracle": main_infos[0][key], "serve hot-set": serving["6b"]["hot"][key],
                 "lm serve": lm["7b"][key], "lm train": lm_train["8b"][key],
-                "lm train launcher": harness["9b"][key]}  # fmt: skip
-        other = {"serve lru": serving["6b"]["lru"][key], "serve launcher": serving["6c"][key]}
+                "lm train launcher": harness["9b"][key],
+                "distributed": distributed["10a"]["cuda"][key]}  # fmt: skip
+        other = {"serve lru": serving["6b"]["lru"][key], "serve launcher": serving["6c"][key],
+                 f"distributed {DIST_RANKS} ranks (gloo)": distributed["10b"][key]}  # fmt: skip
         return sum(main.values()), {**main, **other}
 
     pair_launches, pair_by_path = by_path("launches")
@@ -1766,7 +1991,9 @@ def main(argv=None) -> int:
         name="pair_advance", route="cuda", source="src/repro_torch/kernels/csrc/pair_advance.cu",
         replaces="src/repro/kernels/pair_advance.py:74",
         launches=pair_launches, launches_by_path=pair_by_path,
-        max_abs_err=max(r["max_abs_err"] for r in rows), ms=head["kernel_ms"],
+        max_abs_err=max([r["max_abs_err"] for r in rows]
+                        + [distributed["10a"]["kernel_check"]["max_abs_err"]]),
+        ms=head["kernel_ms"],
         kernel_ms=head["kernel_ms"],
         plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by="bytes", library_ms=None,
     ), dict(
@@ -1783,7 +2010,7 @@ def main(argv=None) -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, variants=rows, bucket_hist=hist, kernel_tier=tier,
         whole_run=whole, other_engines=engines, main_runs=phases, serve=serving, lm=lm,
-        lm_train=lm_train, lm_harness=harness, total_s=elapsed(),
+        lm_train=lm_train, lm_harness=harness, distributed=distributed, total_s=elapsed(),
     ), indent=1))  # fmt: skip
     log(f"[done] {elapsed():.1f}s")
     log(card)

@@ -5,9 +5,10 @@
   builds nothing.
 * The port's ``core``, ``engines``, ``kernels``, ``core.engine``, ``serve``,
   ``core.sampling``, ``models``, ``configs``, ``train``, ``optim``,
-  ``data``, ``checkpoint`` and ``runtime`` export the JAX package's names,
-  but for the documented differences; the last five take the JAX
-  package's parameters.
+  ``data``, ``checkpoint``, ``runtime`` and ``core.distributed`` export the
+  JAX package's names, but for the documented differences; the last six
+  take the JAX package's parameters (``core.distributed`` adds only the
+  port's ``device`` and ``advance_impl`` keywords).
 * An engine built with the default device raises a clear error on a host
   without a CUDA device instead of falling back to the CPU.
 """
@@ -62,6 +63,7 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
         "repro_torch.convert",
         "repro_torch.core.sampling",
         "repro_torch.core.engine",
+        "repro_torch.core.distributed",
         "repro_torch.io.blockfile",
         "repro_torch.models",
         "repro_torch.models.attention",
@@ -159,6 +161,7 @@ _EXPORT_DIFFS = [
     ("data", set(), set()),
     ("checkpoint", set(), set()),
     ("runtime", set(), set()),
+    ("core.distributed", set(), set()),
 ]
 
 _EXPORTS_PROBE = r"""
@@ -248,6 +251,29 @@ def test_train_and_optim_signatures_match_jax():
         differ = {name for name, (jax_params, port_params) in names.items()
                   if port_params != jax_params}  # fmt: skip
         assert differ == _SIGNATURE_DIFFS[pkg], pkg
+
+
+def test_distributed_signatures_match_jax_but_for_device_and_advance():
+    """``DistributedWalkEngine`` takes the JAX engine's parameters (a
+    ``DeviceMesh`` where the JAX one takes a ``jax.sharding.Mesh``: the
+    same name, kind and default) and adds only the port's ``device`` and
+    ``advance_impl`` keywords, last; ``ring_owner_and_round`` is the same."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-c", _SIGNATURES_PROBE, "core.distributed"],
+        capture_output=True, text=True, env=env, check=True,
+    ).stdout  # fmt: skip
+    import json
+
+    res = json.loads(out.strip().splitlines()[-1])["core.distributed"]
+    assert sorted(res) == ["DistributedWalkEngine", "ring_owner_and_round"]
+    jax_params, port_params = res["ring_owner_and_round"]
+    assert port_params == jax_params
+    jax_params, port_params = res["DistributedWalkEngine"]
+    assert [p[0] for p in jax_params][:3] == ["bg", "task", "mesh"]
+    assert port_params == jax_params + [
+        ["device", "KEYWORD_ONLY", "'cuda'"], ["advance_impl", "KEYWORD_ONLY", "'cuda'"],
+    ]  # fmt: skip
 
 
 def test_core_reexports_the_storage_layer_and_the_engine_shim():
