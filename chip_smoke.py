@@ -116,6 +116,24 @@ Phases (each raises on failure, so the script exits non-zero):
    global arrays bitwise equal to a ``(1, 1)`` run of the same graph in one
    block through the plain version.  Each child is bounded by
    DIST_TIMEOUT seconds, and a failed child fails the phase.
+11. MoE / MLA serving — ``repro_torch.models.{moe,mla}`` in deepseek-v2-236b
+   (MLA + MoE with 2 shared experts, 160 routed top-6) and mixtral-8x22b
+   (sliding window + MoE, 8 experts top-2, each cut into 2 virtual
+   experts) at their published widths: (11a) in float32 with TF32 off,
+   deepseek cut to 1 dense + 1 MoE layer and mixtral to 1 layer, the
+   capacity factor raised to the virtual expert count so nothing drops,
+   the forward's last-position logits against prefill of 63 tokens plus
+   one decode step (atol = rtol = 2e-3), and the reduced configs at the
+   published capacity factor 1.25 on the card against the CPU (logits,
+   aux, loss and every gradient within 1e-4; the top-k expert ids equal);
+   (11b) in bfloat16 at the published capacity factor, deepseek cut to
+   1 dense + 3 MoE layers, mixtral to 2: phase 7b's 8 prompts of 512
+   tokens, prefill and 63 greedy decode steps against 576-position
+   caches; prefill and per-step times beside their bounds, kernels per
+   call and idle share, peak memory, the assignments dropped at prefill
+   and at the first decode step, the cache bytes per token and layer;
+   a second prefill bitwise equal to the first, logits finite, tokens
+   inside the vocabulary.  The phase launches neither kernel.
 
 There is no CPU fallback.
 
@@ -136,6 +154,7 @@ version: the measurements the plan's limits rest on.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -218,6 +237,26 @@ HARNESS_DIR = ROOT / ".lm_harness_ckpt"
 #: vertices in DIST_RANKS blocks; every child process and collective is
 #: bounded by DIST_TIMEOUT seconds
 DIST_VERTICES, DIST_RANKS, DIST_TIMEOUT = 250_000, 4, 300
+#: the MoE / MLA serving phase (11), the two MoE decoders at their published
+#: widths.  11a: decode against forward in float32 with TF32 off at the
+#: depth MOE_EQ_SEGMENTS, capacity_factor = the virtual expert count (no
+#: assignment drops), LM_EQ_BATCH sequences of MOE_EQ_SEQ tokens, within
+#: LM_EQUIV_TOL; and the reduced configs at the published capacity factor
+#: MOE_CF (assignments drop) on the card against the CPU within
+#: MOE_CPU_TOL (tests/test_torch_lm.py's tolerance against the JAX
+#: package), with equal top-k ids.  11b: bf16 at MOE_CF, the depth cut to
+#: MOE_SERVE_SEGMENTS (deepseek 27.25 GB, mixtral 10.82 GB of weights),
+#: phase 7b's LM_BATCH prompts of LM_PROMPT tokens and LM_NEW new tokens
+MOE_ARCHS = ("deepseek-v2-236b", "mixtral-8x22b")
+MOE_EQ_SEGMENTS = {
+    "deepseek-v2-236b": ((("mla+mlp",), 1), (("mla+moe",), 1)),
+    "mixtral-8x22b": ((("local+moe",), 1),),
+}
+MOE_SERVE_SEGMENTS = {
+    "deepseek-v2-236b": ((("mla+mlp",), 1), (("mla+moe",), 3)),
+    "mixtral-8x22b": ((("local+moe",), 2),),
+}
+MOE_EQ_SEQ, MOE_CF, MOE_CPU_TOL = 64, 1.25, 1e-4
 #: the bucket histogram's shapes (phase 3b): the main path's 1M walks,
 #: padded to the tile, over its 16 blocks and two larger bucket counts
 HIST_N, HIST_NBS = 1_048_576, (16, 4096, 65536)
@@ -1864,6 +1903,311 @@ def phase_distributed(dev, oracle_counts, src: str):
     return out
 
 
+class _Routes:
+    """Records the top-k expert ids of every ``models.moe._route`` call
+    inside the ``with`` block (one per MoE layer, in order)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self._route = [], moe._route
+
+        def recorded(params, xt, cfg):
+            idx, gate, aux = self._route(params, xt, cfg)
+            self.calls.append(idx)
+            return idx, gate, aux
+
+        moe._route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._route = self._route
+
+
+def _dropped(idx, cfg) -> int:
+    """Assignments past their expert's capacity: ``models/moe.py``'s rule,
+    ``int(T*K/E * cf) + 1`` over the virtual experts, on ``_route``'s ids."""
+    import torch
+
+    E = cfg.n_experts * cfg.moe_virtual_split
+    T, K = idx.shape
+    cap = int((T * K / E) * cfg.capacity_factor) + 1
+    load = torch.bincount(idx.reshape(-1), minlength=E)
+    return int((load - cap).clamp_min(0).sum())
+
+
+def _cut(cfg, segments, **change):
+    """``cfg`` at its published widths with the depth cut to ``segments``."""
+    import dataclasses
+
+    layers = sum(len(pattern) * n for pattern, n in segments)
+    return dataclasses.replace(cfg, name=f"{cfg.name}-{layers}L", n_layers=layers,
+                               segments=segments, **change)  # fmt: skip
+
+
+def _moe_equivalence(arch, dev) -> dict:
+    """11a for one arch: decode against forward at the published widths in
+    float32 (nothing dropped), then the reduced config card against CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import model_caches, model_decode, model_forward, model_init
+    from repro_torch.models.common import tree_leaves_with_path, tree_map
+    from repro_torch.train import make_loss_fn, make_prefill_step
+    from repro_torch.train.step import _value_and_grad
+
+    out = {}
+    base = get_config(arch)
+    ev = base.n_experts * base.moe_virtual_split
+    cfg = _cut(base, MOE_EQ_SEGMENTS[arch], dtype=torch.float32, capacity_factor=float(ev))
+    params = model_init(0, cfg, device=dev)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(
+        rng.integers(1, cfg.vocab_size, (LM_EQ_BATCH, MOE_EQ_SEQ)).astype(np.int32), device=dev
+    )
+    with _Routes() as routes:
+        want = model_forward(params, {"tokens": toks}, cfg)[0][:, -1]
+        _, caches = make_prefill_step(cfg)(params, {"tokens": toks[:, :-1]})
+        target = model_caches(cfg, LM_EQ_BATCH, MOE_EQ_SEQ + 4, device=dev)
+        caches = tree_map(_lm_pad, caches, target)
+        got, _ = model_decode(params, toks[:, -1:], caches, MOE_EQ_SEQ - 1, cfg)
+    out["decode_vs_forward"] = dict(
+        _lm_logits_gap(got, want, LM_EQUIV_TOL), layers=cfg.n_layers, capacity_factor=float(ev),
+        dropped=sum(_dropped(idx, cfg) for idx in routes.calls),
+    )  # fmt: skip
+    log(f"[lm-moe] 11a {cfg.name} float32, capacity_factor {ev} (no drops), decode vs forward "
+        f"(batch {LM_EQ_BATCH}, {MOE_EQ_SEQ} tokens): "
+        f"{json.dumps(out['decode_vs_forward'])}")  # fmt: skip
+    del params, caches, target, got, want, routes
+    torch.cuda.empty_cache()
+
+    # the reduced config at the published capacity factor, so assignments
+    # drop: the card against the CPU on the same weights
+    cfg = dataclasses.replace(reduced_config(arch), capacity_factor=MOE_CF)
+    params = model_init(0, cfg, device=dev)
+    host_params = tree_map(lambda a: a.cpu(), params)
+    batch = _train_batch(cfg, LM_EQ_BATCH, MOE_EQ_SEQ, dev)
+    host_batch = {k: v.cpu() for k, v in batch.items()}
+    runs = []
+    for p, b in ((params, batch), (host_params, host_batch)):
+        with _Routes() as routes:
+            logits, aux = model_forward(p, b, cfg)
+        (loss, _), grads = _value_and_grad(make_loss_fn(cfg), p, b)
+        runs.append((logits, aux, loss, grads, routes.calls))
+    (logits, aux, loss, grads, idx), (h_logits, h_aux, h_loss, h_grads, h_idx) = runs
+    checks = {"logits": _lm_logits_gap(logits, h_logits, MOE_CPU_TOL),
+              "aux": _lm_logits_gap(aux, h_aux, MOE_CPU_TOL),
+              "loss": _lm_logits_gap(loss, h_loss, MOE_CPU_TOL)}  # fmt: skip
+    host_flat = dict(tree_leaves_with_path(h_grads))
+    for path, g in tree_leaves_with_path(grads):
+        checks["grad" + path] = _lm_logits_gap(g, host_flat[path], MOE_CPU_TOL)
+    worst = max(checks, key=lambda key: checks[key]["tol_share"])
+    out["card_vs_cpu"] = dict(
+        arch=cfg.name, capacity_factor=MOE_CF, aux=float(h_aux), checks=len(checks), worst=worst,
+        worst_gap=checks[worst], ok=all(c["ok"] for c in checks.values()), moe_layers=len(idx),
+        topk_differ=sum(int((a.cpu() != b).sum()) for a, b in zip(idx, h_idx)),
+        dropped=[_dropped(i, cfg) for i in h_idx],
+    )  # fmt: skip
+    log(f"[lm-moe] 11a {cfg.name} card vs CPU (float32, capacity_factor {MOE_CF}; logits, aux, "
+        f"loss, every gradient): {json.dumps(out['card_vs_cpu'])}")  # fmt: skip
+    return out
+
+
+def _moe_serve(arch, dev) -> dict:
+    """11b for one arch: bf16 at the published widths and capacity factor,
+    the depth cut to MOE_SERVE_SEGMENTS; phase 7b's prompts and steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_caches, model_init
+    from repro_torch.models.common import tree_leaves, tree_leaves_with_path, tree_map
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    cfg = _cut(get_config(arch), MOE_SERVE_SEGMENTS[arch])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_init(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    nbytes = lambda t: t.numel() * t.element_size()
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    weight_bytes = sum(nbytes(t) for t in leaves)
+    active = cfg.active_param_count()
+    # one virtual expert's weights in one layer (w_in [d, 2F_v], w_out
+    # [F_v, d]), and the weights outside the routed experts
+    fv = (cfg.moe_d_ff or cfg.d_ff) // cfg.moe_virtual_split
+    expert_bytes = 3 * cfg.d_model * fv * cfg.dtype.itemsize
+    dense_bytes = weight_bytes - sum(
+        nbytes(t) for path, t in tree_leaves_with_path(params) if "/moe/experts/" in path
+    )
+    log(f"[lm-moe] 11b {cfg.name} {cfg.dtype} {cfg.n_layers} layers {list(cfg.layer_kinds)} "
+        f"d_model {cfg.d_model}, {cfg.n_experts} experts x split {cfg.moe_virtual_split}, top "
+        f"{cfg.top_k}, capacity_factor {cfg.capacity_factor}: {n_params:,} parameters "
+        f"({active:,} active), {weight_bytes:,} bytes, made on the card in {init_s:.2f}s, "
+        f"torch.cuda.max_memory_allocated while made {init_peak:,} bytes")  # fmt: skip
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(0)
+    prompts = torch.as_tensor(
+        rng.integers(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32), device=dev
+    )
+    prefill = make_prefill_step(cfg)
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    prefill_ms, results = [], []
+    for i in range(2):  # the first call also sets up cuBLAS and records the routes
+        start, stop = ev(), ev()
+        torch.cuda.synchronize()
+        with _Routes() if i == 0 else contextlib.nullcontext() as routes:
+            start.record()
+            results.append(prefill(params, {"tokens": prompts}))
+            stop.record()
+        torch.cuda.synchronize()
+        prefill_ms.append(start.elapsed_time(stop))
+        if i == 0:
+            prefill_routes = routes.calls
+    (logits, pcaches), (logits2, pcaches2) = results
+    bitwise = torch.equal(logits, logits2) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(pcaches), tree_leaves(pcaches2))
+    )
+    del results, logits2, pcaches2
+    max_len = LM_PROMPT + LM_NEW
+    caches = tree_map(_lm_pad, pcaches, model_caches(cfg, LM_BATCH, max_len, device=dev))
+    del pcaches
+    prefill_finite = bool(torch.isfinite(logits).all())
+    decode = make_decode_step(cfg)
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    seq, marks = [tok], []
+    t0 = time.perf_counter()
+    for i in range(LM_NEW - 1):
+        step = {"token": tok, "cache_len": LM_PROMPT + i}
+        start, stop = ev(), ev()
+        with _Routes() if i == 0 else contextlib.nullcontext() as routes:
+            start.record()
+            tok, step_logits, caches = decode(params, step, caches)
+            stop.record()
+        if i == 0:
+            decode_routes = routes.calls
+        marks.append((start, stop))
+        tok = tok[:, None]
+        seq.append(tok)
+    torch.cuda.synchronize()
+    decode_wall_s = time.perf_counter() - t0
+    step_ms = sorted(a.elapsed_time(b) for a, b in marks)
+    seqs = torch.cat(seq, dim=1).cpu()
+    peak = torch.cuda.max_memory_allocated()
+    busy = dict(
+        prefill=_device_busy(lambda: prefill(params, {"tokens": prompts}), 1),
+        decode=_device_busy(
+            lambda: decode(params, {"token": tok, "cache_len": max_len - 1}, caches), 5
+        ),
+    )  # fmt: skip
+    tokens = LM_BATCH * LM_PROMPT
+    flops = 2 * active * tokens
+    # the cache a step reads: every layer's row at the positions filled so
+    # far (the mean over the steps)
+    cache_row = sum(nbytes(t[:, 0, 0]) for t in tree_leaves(caches))
+    cache_bytes = cache_row * LM_BATCH * (LM_PROMPT + (LM_NEW - 1) / 2 + 1)
+    hit = [len(torch.unique(i)) for i in decode_routes]
+    routed_bytes = dense_bytes + expert_bytes * sum(hit)
+    median = step_ms[len(step_ms) // 2]
+    serve = dict(
+        arch=cfg.name, dtype=str(cfg.dtype), layers=cfg.n_layers, params=n_params,
+        active_params=active, weight_bytes=weight_bytes, batch=LM_BATCH, prompt=LM_PROMPT,
+        new_tokens=LM_NEW, cache_len=max_len, capacity_factor=cfg.capacity_factor,
+        init_s=init_s, init_peak=init_peak,
+        prefill_first_ms=prefill_ms[0], prefill_ms=prefill_ms[1],
+        prefill_tokens_per_s=tokens / (prefill_ms[1] / 1e3), prefill_flops=flops,
+        prefill_bound_ms=flops / BF16_FLOPS_PER_S * 1e3, prefill_bitwise=bitwise,
+        decode_steps=len(step_ms), decode_ms_median=median, decode_ms_min=step_ms[0],
+        decode_ms_max=step_ms[-1], decode_tokens_per_s=LM_BATCH / (median / 1e3),
+        decode_wall_s=decode_wall_s, decode_cache_bytes_mean=cache_bytes,
+        decode_bound_ms=(weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+        decode_routed_bytes=routed_bytes, experts_hit_decode_step1=hit,
+        decode_routed_bound_ms=(routed_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+        cache_bytes_per_token_layer=cache_row // cfg.n_layers,
+        assignments_prefill=sum(i.numel() for i in prefill_routes),
+        dropped_prefill=[_dropped(i, cfg) for i in prefill_routes],
+        assignments_decode_step1=sum(i.numel() for i in decode_routes),
+        dropped_decode_step1=[_dropped(i, cfg) for i in decode_routes],
+        max_memory_allocated=peak, seq0=seqs[0].tolist(), device_busy=busy,
+        prefill_idle_share=1 - busy["prefill"]["device_ms"] / prefill_ms[1],
+        decode_idle_share=1 - busy["decode"]["device_ms"] / median,
+    )  # fmt: skip
+    log(f"[lm-moe] 11b {cfg.name} prefill {LM_BATCH} x {LM_PROMPT} tokens: {prefill_ms[1]:.3f} ms "
+        f"(first call {prefill_ms[0]:.3f} ms), {serve['prefill_tokens_per_s']:,.0f} tokens/s; "
+        f"bound {serve['prefill_bound_ms']:.3f} ms = 2 x {active:,} active params x {tokens} "
+        f"tokens / {BF16_FLOPS_PER_S:.3g} FLOP/s; second prefill bitwise equal: "
+        f"{bitwise}")  # fmt: skip
+    log(f"[lm-moe] 11b {cfg.name} decode {len(step_ms)} steps of {LM_BATCH} tokens: median "
+        f"{median:.3f} ms (min {step_ms[0]:.3f}, max {step_ms[-1]:.3f}), "
+        f"{serve['decode_tokens_per_s']:,.1f} tokens/s; {decode_wall_s:.3f} s on the host clock; "
+        f"bound {serve['decode_bound_ms']:.4f} ms = ({weight_bytes:,} weight bytes, every "
+        f"expert's, as the capacity path multiplies them all, + {cache_bytes:,.0f} cache bytes, "
+        f"the mean step's) / {HBM_BYTES_PER_S:.3g} B/s; routed experts only "
+        f"{serve['decode_routed_bound_ms']:.4f} ms ({routed_bytes:,} weight bytes: {hit} "
+        f"virtual experts hit per MoE layer at the first step)")  # fmt: skip
+    for name in ("prefill", "decode"):
+        b = busy[name]
+        log(f"[lm-moe] 11b {cfg.name} {name} on the card (torch.profiler): {b['device_ms']:.3f} "
+            f"ms busy and {b['kernels']:.0f} kernels per call, idle share "
+            f"{serve[name + '_idle_share']:.3f} of the timed call; top "
+            f"{json.dumps(b['top'])}")  # fmt: skip
+    log(f"[lm-moe] 11b {cfg.name} dropped assignments per MoE layer: prefill "
+        f"{serve['dropped_prefill']} of {serve['assignments_prefill']:,} in all, first decode step "
+        f"{serve['dropped_decode_step1']} of {serve['assignments_decode_step1']} in all; cache "
+        f"{serve['cache_bytes_per_token_layer']:,} bytes per token and layer; "
+        f"torch.cuda.max_memory_allocated over prefill + decode {peak:,} bytes")  # fmt: skip
+    log(f"[lm-moe] 11b {cfg.name} seq 0: {serve['seq0']}")
+    if not bitwise:
+        raise AssertionError(f"phase 11b {cfg.name}: two prefills of the same prompts differ")
+    if not (prefill_finite and bool(torch.isfinite(step_logits).all())):
+        raise AssertionError(f"phase 11b {cfg.name}: logits are not finite")
+    if not ((seqs >= 0) & (seqs < cfg.vocab_size)).all():
+        raise AssertionError(f"phase 11b {cfg.name}: a token outside the vocabulary")
+    if seqs.shape != (LM_BATCH, LM_NEW):
+        raise AssertionError(f"phase 11b {cfg.name}: {tuple(seqs.shape)} tokens")
+    del params, caches
+    torch.cuda.empty_cache()
+    return serve
+
+
+def phase_lm_moe(dev):
+    """Phase 11: serving the MoE and MLA decoders at their published widths
+    (11a equivalence in float32, 11b serving in bfloat16)."""
+    import torch
+
+    from repro_torch.kernels.bucket_hist import bucket_hist_kernel
+    from repro_torch.kernels.pair_advance import fused_advance_pair
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    out = {"11a": {arch: _moe_equivalence(arch, dev) for arch in MOE_ARCHS}}
+    for arch, eq in out["11a"].items():
+        if not eq["decode_vs_forward"]["ok"] or eq["decode_vs_forward"]["dropped"]:
+            raise AssertionError(f"phase 11a {arch}: decode vs forward {eq['decode_vs_forward']}")
+        if not eq["card_vs_cpu"]["ok"] or eq["card_vs_cpu"]["topk_differ"]:
+            raise AssertionError(f"phase 11a {arch}: card vs CPU {eq['card_vs_cpu']}")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    fused_advance_pair.launches = 0
+    bucket_hist_kernel.launches = 0
+    out["11b"] = {arch: _moe_serve(arch, dev) for arch in MOE_ARCHS}
+    out["11b"]["launches"] = fused_advance_pair.launches
+    out["11b"]["bucket_hist_launches"] = bucket_hist_kernel.launches
+    log(f"[lm-moe] phase 11: {time.perf_counter() - t_phase:.1f}s; kernel launches: pair_advance "
+        f"{out['11b']['launches']}, bucket_hist {out['11b']['bucket_hist_launches']}")  # fmt: skip
+    return out
+
+
 def dist_child(rank: int, tmp: str) -> int:
     """One rank of phase 10b: joins the gloo group, runs its block of the
     DIST_VERTICES graph through the kernel and writes the global arrays."""
@@ -1966,17 +2310,20 @@ def main(argv=None) -> int:
     lm_train = phase_lm_train(dev)
     harness = phase_harness(dev)
     distributed = phase_distributed(dev, oracle_counts, args.src)
+    lm_moe = phase_lm_moe(dev)
     # ``launches`` counts the main paths only: the walk launcher, the
     # full-size hot-set server, LM serving and LM training (which run
-    # neither kernel), the train launcher (its corpus's advances) and the
-    # distributed engine at full size (10a); the LRU server, the launcher
+    # neither kernel), the train launcher (its corpus's advances), the
+    # distributed engine at full size (10a) and MoE / MLA serving (11b,
+    # neither kernel); the LRU server, the launcher
     # at its small defaults and the 4-rank gloo run are listed beside them
     # in ``launches_by_path``
     def by_path(key):
         main = {"walk biblock+oracle": main_infos[0][key], "serve hot-set": serving["6b"]["hot"][key],
                 "lm serve": lm["7b"][key], "lm train": lm_train["8b"][key],
                 "lm train launcher": harness["9b"][key],
-                "distributed": distributed["10a"]["cuda"][key]}  # fmt: skip
+                "distributed": distributed["10a"]["cuda"][key],
+                "lm serve moe/mla": lm_moe["11b"][key]}  # fmt: skip
         other = {"serve lru": serving["6b"]["lru"][key], "serve launcher": serving["6c"][key],
                  f"distributed {DIST_RANKS} ranks (gloo)": distributed["10b"][key]}  # fmt: skip
         return sum(main.values()), {**main, **other}
@@ -2010,7 +2357,8 @@ def main(argv=None) -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, build_s=build_s, variants=rows, bucket_hist=hist, kernel_tier=tier,
         whole_run=whole, other_engines=engines, main_runs=phases, serve=serving, lm=lm,
-        lm_train=lm_train, lm_harness=harness, distributed=distributed, total_s=elapsed(),
+        lm_train=lm_train, lm_harness=harness, distributed=distributed, lm_moe=lm_moe,
+        total_s=elapsed(),
     ), indent=1))  # fmt: skip
     log(f"[done] {elapsed():.1f}s")
     log(card)

@@ -2,8 +2,10 @@
 
 Pure functions over parameter trees with the JAX package's layout;
 :class:`~repro_torch.models.module.DecoderLM` holds a tree as an
-``nn.Module``.  The dense decoders (attention + MLP blocks, VLM prefix)
-run; the other block kinds raise ``NotImplementedError``.
+``nn.Module``.  The decoders with attention, sliding-window or latent
+(MLA) attention blocks and dense or MoE MLPs run, VLM prefix included; the
+SSD and RG-LRU block kinds and the encoder-decoder kind raise
+``NotImplementedError``.
 """
 
 from .common import ModelConfig, padded_vocab

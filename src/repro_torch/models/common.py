@@ -246,7 +246,9 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None
     the default device (``registry.model_init`` sets it)."""
     fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
     s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    return (torch.randn(shape, generator=gen, dtype=torch.float32) * s).to(dtype)
+    # scaled in place: one float32 temporary, not two (10 GB each for
+    # deepseek's stacked experts)
+    return torch.randn(shape, generator=gen, dtype=torch.float32).mul_(s).to(dtype)
 
 
 def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:

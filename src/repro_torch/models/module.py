@@ -46,7 +46,8 @@ def _unwrap(mod):
 
 
 class DecoderLM(nn.Module):
-    """A decoder LM (dense, or with a VLM prefix) over ``params``."""
+    """A decoder LM (dense or MoE, attention or MLA, with or without a VLM
+    prefix) over ``params``."""
 
     def __init__(self, params: dict, cfg: ModelConfig):
         super().__init__()

@@ -1,7 +1,7 @@
 """Model facade: one entry point per model kind, dispatched from the config.
 
-The port of ``repro/models/registry.py``.  The decoder LM and the
-VLM-prefixed LM run; the encoder-decoder kind raises
+The port of ``repro/models/registry.py``.  The decoder LM (dense, MoE,
+MLA) and the VLM-prefixed LM run; the encoder-decoder kind raises
 ``NotImplementedError`` until ``models/encdec.py`` is ported.  The train
 layer talks only to these functions + `init_params_shape`.
 
@@ -40,7 +40,7 @@ def _no_encdec(cfg: ModelConfig) -> None:
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder kind is not ported to PyTorch yet "
-            "(models/encdec.py, ROADMAP.md section 1, item 4)"
+            "(models/encdec.py, ROADMAP.md section 1, item 6)"
         )
 
 

@@ -2,10 +2,10 @@
 
 The port of ``repro/models/transformer.py``.  A config's ``segments`` is a
 tuple of ``(pattern, n_groups)``; each pattern entry is
-``"<block>[+<mlp>]"``.  The port runs the block kinds ``attn`` and
-``local`` with the mlp kind ``mlp`` (every dense decoder); ``mla``,
-``ssd``, ``rglru`` and ``moe`` raise ``NotImplementedError`` until their
-modules are ported.
+``"<block>[+<mlp>]"``.  The port runs the block kinds ``attn``, ``local``
+and ``mla`` with the mlp kinds ``mlp`` and ``moe`` (the dense decoders,
+mixtral and deepseek); ``ssd`` and ``rglru`` raise
+``NotImplementedError`` until their modules are ported.
 
 The parameter and cache trees have the JAX package's layout: a segment's
 tensors are stacked on a leading group axis (as ``jax.vmap`` and
@@ -41,6 +41,8 @@ from .common import (
     tree_map,
     tree_unflatten,
 )
+from .mla import init_mla_cache, mla_apply, mla_decode, mla_init
+from .moe import moe_apply, moe_init
 
 __all__ = [
     "init_params",
@@ -53,10 +55,8 @@ __all__ = [
 
 #: block and mlp kinds of the JAX package that wait for their modules
 _NOT_PORTED = {
-    "mla": "models/mla.py",
     "ssd": "models/ssm.py",
     "rglru": "models/rglru.py",
-    "moe": "models/moe.py",
 }
 
 
@@ -74,11 +74,11 @@ def _check_kind(kind: str) -> Tuple[str, Optional[str]]:
         if part in _NOT_PORTED:
             raise NotImplementedError(
                 f"layer kind {kind!r}: {part!r} is not ported to PyTorch yet "
-                f"({_NOT_PORTED[part]}, ROADMAP.md section 1, item 4)"
+                f"({_NOT_PORTED[part]}, ROADMAP.md section 1, item 6)"
             )
-    if block not in ("attn", "local"):
+    if block not in ("attn", "local", "mla"):
         raise ValueError(f"unknown block kind {block!r}")
-    if mlp not in (None, "mlp"):
+    if mlp not in (None, "mlp", "moe"):
         raise ValueError(f"unknown mlp kind {mlp!r}")
     return block, mlp
 
@@ -99,13 +99,27 @@ def _stack(trees):
 
 
 def _block_init(gen: torch.Generator, kind: str, cfg: ModelConfig) -> dict:
-    _, mlp = _check_kind(kind)
+    block, mlp = _check_kind(kind)
     p: Dict[str, Any] = {"norm1": torch.zeros((cfg.d_model,), dtype=torch.float32)}
-    p["attn"] = attn_init(gen, cfg)
-    if mlp == "mlp":
+    p["attn"] = mla_init(gen, cfg) if block == "mla" else attn_init(gen, cfg)
+    if mlp is not None:
         p["norm2"] = torch.zeros((cfg.d_model,), dtype=torch.float32)
-        p["mlp"] = mlp_init(gen, cfg)
+        p[mlp] = mlp_init(gen, cfg) if mlp == "mlp" else moe_init(gen, cfg)
     return p
+
+
+def _stacked_groups(make, n_groups: int):
+    """``_stack([make() for _ in range(n_groups)])``, the groups made in
+    that order, each copied into the stacked tensors as soon as it is made:
+    one group is alive beside the segment, not all of them."""
+    out = None
+    for g in range(n_groups):
+        group = make()
+        if out is None:
+            out = tree_map(lambda x: x.new_empty((n_groups, *x.shape)), group)
+        tree_map(lambda o, x: o[g].copy_(x), out, group)
+        group = None  # freed before the next group's draws
+    return out
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -118,11 +132,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, vp), cfg.dtype)
     params["segments"] = [
-        _stack(
-            [
-                {f"pos{j}": _block_init(gen, kind, cfg) for j, kind in enumerate(pattern)}
-                for _ in range(n_groups)
-            ]
+        _stacked_groups(
+            lambda pattern=pattern: {
+                f"pos{j}": _block_init(gen, kind, cfg) for j, kind in enumerate(pattern)
+            },
+            n_groups,
         )
         for pattern, n_groups in cfg.segments
     ]
@@ -140,19 +154,27 @@ def _apply_block(p, x, kind: str, cfg: ModelConfig, *, collect_cache: bool):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     cache = None
-    window = cfg.window if block == "local" else None
-    out, (k, v) = attention_apply(p["attn"], h, cfg, window=window)
-    if collect_cache:
-        if window and k.shape[1] > window:
-            # ring-buffer layout: decode stores position p at slot p % W,
-            # so the retained window must be rolled to match
-            S = k.shape[1]
-            k = torch.roll(k[:, -window:], S % window, dims=1)
-            v = torch.roll(v[:, -window:], S % window, dims=1)
-        cache = {"k": k, "v": v}
+    if block == "mla":
+        out, lat = mla_apply(p["attn"], h, cfg)
+        if collect_cache:
+            cache = {"ckv": lat}
+    else:
+        window = cfg.window if block == "local" else None
+        out, (k, v) = attention_apply(p["attn"], h, cfg, window=window)
+        if collect_cache:
+            if window and k.shape[1] > window:
+                # ring-buffer layout: decode stores position p at slot p % W,
+                # so the retained window must be rolled to match
+                S = k.shape[1]
+                k = torch.roll(k[:, -window:], S % window, dims=1)
+                v = torch.roll(v[:, -window:], S % window, dims=1)
+            cache = {"k": k, "v": v}
     x = x + out
     if mlp == "mlp":
         x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg.mlp_type)
+    elif mlp == "moe":
+        out, aux = moe_apply(p["moe"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg)
+        x = x + out
     return x, cache, aux
 
 
@@ -257,8 +279,11 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int):
         one_group = {}
         for j, kind in enumerate(pattern):
             block, _ = _check_kind(kind)
-            window = cfg.window if block == "local" else None
-            one_group[f"pos{j}"] = init_kv_cache(cfg, batch, max_len, window=window)
+            if block == "mla":
+                one_group[f"pos{j}"] = init_mla_cache(cfg, batch, max_len)
+            else:
+                window = cfg.window if block == "local" else None
+                one_group[f"pos{j}"] = init_kv_cache(cfg, batch, max_len, window=window)
         caches.append(tree_map(lambda x: x.new_zeros((n_groups, *x.shape)), one_group))
     return caches
 
@@ -285,10 +310,17 @@ def decode_step(params, token, caches, cache_len, cfg: ModelConfig):
                 block, mlp = _check_kind(kind)
                 p = gp[f"pos{j}"]
                 hn = rms_norm(x, p["norm1"], cfg.norm_eps)
-                window = cfg.window if block == "local" else None
                 c = gc[f"pos{j}"]
-                out, _ = attention_decode(p["attn"], hn, c, cache_len, cfg, window=window)
+                if block == "mla":
+                    out, _ = mla_decode(p["attn"], hn, c, cache_len, cfg)
+                else:
+                    window = cfg.window if block == "local" else None
+                    out, _ = attention_decode(p["attn"], hn, c, cache_len, cfg, window=window)
                 x = x + out
                 if mlp == "mlp":
                     x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg.mlp_type)
+                elif mlp == "moe":
+                    # the aux loss is dropped at decode, as in the JAX step
+                    out, _ = moe_apply(p["moe"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg)
+                    x = x + out
     return _logits(params, x, cfg)[:, 0], caches

@@ -8,7 +8,8 @@
   ``data``, ``checkpoint``, ``runtime`` and ``core.distributed`` export the
   JAX package's names, but for the documented differences; the last six
   take the JAX package's parameters (``core.distributed`` adds only the
-  port's ``device`` and ``advance_impl`` keywords).
+  port's ``device`` and ``advance_impl`` keywords); ``models.moe`` and
+  ``models.mla`` too, but for the init functions' generator.
 * An engine built with the default device raises a clear error on a host
   without a CUDA device instead of falling back to the CPU.
 """
@@ -67,6 +68,8 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
         "repro_torch.io.blockfile",
         "repro_torch.models",
         "repro_torch.models.attention",
+        "repro_torch.models.moe",
+        "repro_torch.models.mla",
         "repro_torch.models.transformer",
         "repro_torch.models.module",
         "repro_torch.configs",
@@ -251,6 +254,32 @@ def test_train_and_optim_signatures_match_jax():
         differ = {name for name, (jax_params, port_params) in names.items()
                   if port_params != jax_params}  # fmt: skip
         assert differ == _SIGNATURE_DIFFS[pkg], pkg
+
+
+def test_moe_and_mla_signatures_match_jax_but_for_the_generator():
+    """``models.moe`` and ``models.mla`` export the JAX modules' names, and
+    each takes the JAX function's parameters (names, kinds, defaults, in
+    order), but for the init functions' first: a ``torch.Generator``
+    ``gen`` where the JAX one takes a PRNG ``key``, as ``attn_init``."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
+    pkgs = ["models.moe", "models.mla"]
+    out = subprocess.run(
+        [sys.executable, "-c", _SIGNATURES_PROBE, *pkgs],
+        capture_output=True, text=True, env=env, check=True,
+    ).stdout  # fmt: skip
+    import importlib
+    import json
+
+    res = json.loads(out.strip().splitlines()[-1])
+    assert sorted(res["models.moe"]) == ["moe_apply", "moe_init"]
+    assert sorted(res["models.mla"]) == ["init_mla_cache", "mla_apply", "mla_decode", "mla_init"]
+    for pkg in pkgs:
+        assert sorted(importlib.import_module("repro_torch." + pkg).__all__) == sorted(res[pkg])
+        for name, (jax_params, port_params) in res[pkg].items():
+            if name.endswith("_init"):
+                assert jax_params[0][0] == "key" and port_params[0][0] == "gen", name
+                jax_params, port_params = jax_params[1:], port_params[1:]
+            assert port_params == jax_params, f"{pkg}.{name}"
 
 
 def test_distributed_signatures_match_jax_but_for_device_and_advance():

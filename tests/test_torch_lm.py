@@ -6,10 +6,13 @@ port gets the JAX package's weights through
 ``repro_torch.convert.lm_params_from_arrays``.  Covered: chunked attention
 on the flash grid, single-token decode against a linear and a ring cache,
 forward / prefill (logits and every cache leaf) / decode for the reduced
-configs of the five dense decoders (and a windowed variant), greedy tokens,
-the decode-matches-forward equivalence inside the port, a bfloat16 tree
-carried across bit for bit, every config's fields, and the kinds the port
-does not run yet.
+configs of the five dense decoders (and a windowed variant) and of the MoE
+decoders (mixtral: sliding window + MoE; deepseek: MLA + MoE with shared
+experts), greedy tokens, ``moe_apply`` with tokens dropped, tied router
+probabilities and the virtual expert split, ``mla_decode`` at every kind of
+cache slot, the decode-matches-forward equivalence inside the port, a
+bfloat16 tree carried across bit for bit, every config's fields, and the
+kinds the port does not run yet.
 """
 
 import dataclasses
@@ -37,6 +40,10 @@ from repro.models import (  # noqa: E402
 from repro.models.attention import attention_decode as j_attention_decode  # noqa: E402
 from repro.models.attention import attn_init as j_attn_init  # noqa: E402
 from repro.models.attention import chunked_attention as j_chunked_attention  # noqa: E402
+from repro.models.mla import mla_decode as j_mla_decode  # noqa: E402
+from repro.models.mla import mla_init as j_mla_init  # noqa: E402
+from repro.models.moe import moe_apply as j_moe_apply  # noqa: E402
+from repro.models.moe import moe_init as j_moe_init  # noqa: E402
 from repro.train import make_decode_step as j_make_decode_step  # noqa: E402
 
 from repro_torch import configs as tconfigs  # noqa: E402
@@ -51,6 +58,8 @@ from repro_torch.models import (  # noqa: E402
 )
 from repro_torch.models.attention import attention_decode, chunked_attention  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.models.mla import mla_decode  # noqa: E402
+from repro_torch.models.moe import _dispatch, _route, moe_apply  # noqa: E402
 from repro_torch.models.module import DecoderLM  # noqa: E402
 from repro_torch.train import make_decode_step  # noqa: E402
 
@@ -67,10 +76,13 @@ ATTN_TOL = 1e-5
 EQUIV_TOL = 2e-3
 
 DENSE = ["llama3.2-1b", "qwen1.5-0.5b", "phi3-mini-3.8b", "yi-34b", "internvl2-1b"]
-NOT_DENSE = sorted(set(jconfigs.ARCH_IDS) - set(DENSE))
+#: the MoE decoders: mixtral (sliding window + MoE), deepseek (MLA + MoE)
+MOE = ["deepseek-v2-236b", "mixtral-8x22b"]
+NOT_PORTED = sorted(set(jconfigs.ARCH_IDS) - set(DENSE) - set(MOE))
 #: the dense decoders, plus llama's reduced config with windowed ('local')
-#: layers whose window the prompt overruns, so the ring cache wraps
-CASES = DENSE + ["llama3.2-1b/local"]
+#: layers whose window the prompt overruns, so the ring cache wraps, and
+#: the MoE decoders
+CASES = DENSE + ["llama3.2-1b/local"] + MOE
 B, S = 2, 24
 
 
@@ -188,6 +200,75 @@ def test_attention_decode_matches_jax(window, length, pos):
     _close(tout, jout, ATTN_TOL)
     for name in ("k", "v"):
         _close(tcache[name], jcache[name], ATTN_TOL, name)
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA
+# ---------------------------------------------------------------------------
+
+#: aux is one float32 sum over E experts of (mean probability x share)
+AUX_TOL = 1e-5
+
+
+@pytest.mark.parametrize(
+    "arch,change,zero_router",
+    [
+        # capacity below the load: tokens drop, and the stable dispatch
+        # sort decides which
+        ("deepseek-v2-236b", dict(capacity_factor=0.25), False),
+        ("deepseek-v2-236b", dict(capacity_factor=1.0), False),
+        ("deepseek-v2-236b", dict(capacity_factor=1.0, n_shared_experts=0), False),
+        ("mixtral-8x22b", dict(capacity_factor=0.25), False),
+        ("mixtral-8x22b", dict(capacity_factor=1.0), False),
+        # every expert cut into 2 virtual experts, as the full config
+        ("mixtral-8x22b", dict(moe_virtual_split=2), False),
+        ("mixtral-8x22b", dict(moe_virtual_split=2, capacity_factor=0.25), False),
+        # a zero router: every probability ties, top-k takes the lowest ids
+        ("deepseek-v2-236b", dict(capacity_factor=1.0), True),
+        ("mixtral-8x22b", dict(moe_virtual_split=2, capacity_factor=1.0), True),
+    ],
+)
+def test_moe_apply_matches_jax(arch, change, zero_router):
+    jcfg = dataclasses.replace(jconfigs.reduced_config(arch), **change)
+    tcfg = dataclasses.replace(tconfigs.reduced_config(arch), **change)
+    jp = j_moe_init(jax.random.PRNGKey(5), jcfg)
+    if zero_router:
+        jp["router"] = jnp.zeros_like(jp["router"])
+    tp = tree_map(lambda a: torch.from_numpy(np.array(a)), jax.tree.map(np.asarray, jp))
+    x = np.random.default_rng(5).standard_normal((B, 12, jcfg.d_model)).astype(np.float32)
+    jout, jaux = j_moe_apply(jp, jnp.asarray(x), jcfg)
+    tout, taux = moe_apply(tp, torch.as_tensor(x), tcfg)
+    _close(tout, jout, what=f"{arch} {change}")
+    _close(taux, jaux, AUX_TOL, "aux")
+    # the case does what it says: drops where the capacity is short, none
+    # at the reduced configs' own factor of 8
+    T, E = B * 12, tcfg.n_experts * tcfg.moe_virtual_split
+    idx, _, _ = _route(tp, torch.as_tensor(x).reshape(T, -1), tcfg)
+    cap = int((T * idx.shape[1] / E) * tcfg.capacity_factor) + 1
+    dropped = int((~_dispatch(idx, T, E, cap)[2]).sum())
+    assert dropped > 0 if tcfg.capacity_factor <= 1.0 else dropped == 0, dropped
+    if zero_router:
+        assert (idx == torch.arange(idx.shape[1])).all()
+
+
+@pytest.mark.parametrize("length,pos", [(12, 0), (12, 5), (12, 11), (12, 14)])
+def test_mla_decode_matches_jax(length, pos):
+    """An empty cache, a part-full one, the last slot, and past the end (the
+    slot clamped to L - 1 and rewritten)."""
+    jcfg, tcfg = _configs("deepseek-v2-236b")
+    rng = np.random.default_rng(1)
+    jp = j_mla_init(jax.random.PRNGKey(1), jcfg)
+    tp = tree_map(lambda a: torch.from_numpy(np.array(a)), jax.tree.map(np.asarray, jp))
+    x = rng.standard_normal((B, 1, jcfg.d_model)).astype(np.float32)
+    width = jcfg.kv_lora_rank + jcfg.qk_rope_dim
+    cache = rng.standard_normal((B, length, width)).astype(np.float32)
+    jout, jcache = j_mla_decode(jp, jnp.asarray(x), {"ckv": jnp.asarray(cache)}, jnp.int32(pos),
+                                jcfg)  # fmt: skip
+    tcache = {"ckv": torch.as_tensor(cache)}
+    tout, tcache2 = mla_decode(tp, torch.as_tensor(x), tcache, pos, tcfg)
+    assert tcache2 is tcache  # updated in place
+    _close(tout, jout, ATTN_TOL)
+    _close(tcache["ckv"], jcache["ckv"], ATTN_TOL, "ckv")
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +432,7 @@ def test_config_registry_matches_jax():
         tconfigs.get_config("gpt-2")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_param_count_from_shapes_matches_jax(arch):
     """At the published widths, on the meta device: nothing is allocated."""
     jcfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
@@ -360,7 +441,7 @@ def test_param_count_from_shapes_matches_jax(arch):
     assert all(t.device.type == "meta" for t in tree_leaves(init_params_shape(tcfg)))
 
 
-@pytest.mark.parametrize("arch", NOT_DENSE)
+@pytest.mark.parametrize("arch", NOT_PORTED)
 def test_kinds_not_ported_raise(arch):
     cfg = tconfigs.reduced_config(arch)
     for call in (
@@ -407,7 +488,8 @@ def _shape_of_output(text):
     return re.sub(r"\[[\d, ]+\]", lambda m: f"[{len(m.group(0).split(','))} tokens]", text)
 
 
-def test_serve_lm_twin_prints_what_the_jax_example_prints():
+@pytest.mark.parametrize("arch", ["llama3.2-1b", *MOE])
+def test_serve_lm_twin_prints_what_the_jax_example_prints(arch):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
 
     def run(script, *extra):
@@ -418,7 +500,7 @@ def test_serve_lm_twin_prints_what_the_jax_example_prints():
         assert proc.returncode == 0, proc.stderr[-2000:]
         return proc.stdout
 
-    want = run("examples/serve_lm.py")
-    got = run("examples/torch_port/serve_lm.py", "--device", "cpu")
+    want = run("examples/serve_lm.py", "--arch", arch)
+    got = run("examples/torch_port/serve_lm.py", "--arch", arch, "--device", "cpu")
     assert _shape_of_output(got) == _shape_of_output(want)
     assert "seq 0: [2 tokens]" in _shape_of_output(got)

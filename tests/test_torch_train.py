@@ -8,8 +8,10 @@ state with ``adamw_init`` from them, as the JAX side does.  Covered:
 ``lm_loss`` with ignored labels and a padded vocabulary, ``lr_schedule``,
 three ``adamw_update`` steps over a tree with a bf16 leaf and an active
 clip, the flash backward against the JAX ``custom_vjp`` (causal, banded,
-GQA, padded), the loss and every leaf's gradient and one train step for
-each dense reduced config, ``microbatches=2``, the remat policies, the
+GQA, padded), the loss and every leaf's gradient for each dense reduced
+config and for the MoE ones (mixtral, deepseek with MLA; the load-balance
+aux term in the loss), one train step for each dense reduced config,
+``microbatches=2``, the remat policies, the
 twin of ``tests/test_models.py::test_train_step_decreases_loss``, and the
 decode step's ``sample`` flag.
 """
@@ -48,6 +50,8 @@ from repro_torch.train.step import _value_and_grad  # noqa: E402
 ATOL = RTOL = 1e-4
 
 DENSE = ["llama3.2-1b", "qwen1.5-0.5b", "phi3-mini-3.8b", "yi-34b", "internvl2-1b"]
+#: the MoE decoders: mixtral (sliding window + MoE), deepseek (MLA + MoE)
+MOE = ["deepseek-v2-236b", "mixtral-8x22b"]
 B, S = 2, 24
 OPT = dict(lr=5e-3, warmup_steps=1, total_steps=50)
 #: a train step's parameters and master: Adam's first update is
@@ -110,15 +114,26 @@ def _batch(cfg, rng):
     )
 
 
-@pytest.fixture(scope="module", params=DENSE)
-def model(request):
-    """A dense arch's configs, the JAX package's weights on both sides and
+def _model(arch):
+    """An arch's configs, the JAX package's weights on both sides and
     one batch."""
-    arch = request.param
     jcfg, tcfg = jconfigs.reduced_config(arch), tconfigs.reduced_config(arch)
     jparams = j_init(jax.random.PRNGKey(3), jcfg)
     jb, tb = _batch(jcfg, np.random.default_rng(3))
     return arch, jcfg, tcfg, jparams, jb, tb
+
+
+#: the train step's tests hold parameters after one Adam update, which
+#: divides each gradient by its own magnitude; they run on the dense
+#: configs (STEP_TOL's note)
+@pytest.fixture(scope="module", params=DENSE)
+def model(request):
+    return _model(request.param)
+
+
+@pytest.fixture(scope="module", params=DENSE + MOE)
+def any_model(request):
+    return _model(request.param)
 
 
 def _port_params(jparams, tcfg):
@@ -244,17 +259,19 @@ def test_flash_backward_matches_jax(causal, window, qc, kc, seq, heads, kv_heads
 
 
 # ---------------------------------------------------------------------------
-# loss, gradients and the train step on the dense reduced configs
+# loss, gradients and the train step on the reduced configs
 # ---------------------------------------------------------------------------
 
 
-def test_loss_and_grads_match_jax(model):
-    arch, jcfg, tcfg, jparams, jb, tb = model
+def test_loss_and_grads_match_jax(any_model):
+    arch, jcfg, tcfg, jparams, jb, tb = any_model
     (jl, jm), jg = jax.value_and_grad(j_make_loss_fn(jcfg), has_aux=True)(jparams, jb)
     (tl, tm), tg = _value_and_grad(make_loss_fn(tcfg), _port_params(jparams, tcfg), tb)
     _close(tl, jl, what="loss")
     for key in ("ce", "aux"):
         _close(tm[key], jm[key], what=key)
+    if arch in MOE:  # the load-balance term is in the loss and its gradient
+        assert float(jm["aux"]) > 0
     assert int(tm["tokens"]) == int(jm["tokens"])
     _close_trees(tg, jg, what=f"{arch} grad ", share=SHARE)
 
@@ -339,7 +356,7 @@ def test_remat_unknown_policy_raises_and_serving_skips_remat(monkeypatch):
         model_prefill(params, tb, bogus)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_train_step_decreases_loss(arch):
     """The twin of tests/test_models.py::test_train_step_decreases_loss."""
     cfg = tconfigs.reduced_config(arch)
