@@ -134,6 +134,22 @@ Phases (each raises on failure, so the script exits non-zero):
    and at the first decode step, the cache bytes per token and layer;
    a second prefill bitwise equal to the first, logits finite, tokens
    inside the vocabulary.  The phase launches neither kernel.
+12. SSD / RG-LRU / encoder-decoder serving — ``repro_torch.models.{ssm,
+   rglru,encdec}`` in mamba2-2.7b, recurrentgemma-2b and whisper-tiny at
+   their published widths: (12a) in float32 with TF32 off, mamba2 cut to 2
+   layers, recurrentgemma to one (rglru, rglru, local) group and whisper at
+   its full 4 + 4 layers, 2 prompts of 300 tokens (whisper over 1,500
+   frames): prefill of 297 tokens (two SSD chunks, the second padded; a
+   9-pass scan) and 3 chained decode steps against the forward's logits
+   (atol = rtol = 2e-3), the card against the CPU on the same weights
+   (1e-3), and the reduced configs on the card against the CPU (logits,
+   aux, prefill caches, loss and every gradient within 1e-4); (12b) in
+   bfloat16 at full depth: phase 7b's 8 prompts of 512 tokens (whisper: 8
+   clips of 1,500 frames and 64-token prompts), prefilled twice (bitwise),
+   then 63 greedy decode steps; prefill and per-step times beside their
+   bounds, kernels per call and idle share, peak memory, the state and
+   cache bytes per sequence; logits finite, tokens inside the vocabulary.
+   The phase launches neither kernel.
 
 There is no CPU fallback.
 
@@ -257,6 +273,26 @@ MOE_SERVE_SEGMENTS = {
     "mixtral-8x22b": ((("local+moe",), 2),),
 }
 MOE_EQ_SEQ, MOE_CF, MOE_CPU_TOL = 64, 1.25, 1e-4
+#: the SSD / RG-LRU / encoder-decoder serving phase (12), the three models at
+#: their published widths.  12a: float32 with TF32 off, mamba2 cut to 2
+#: layers and recurrentgemma to one (rglru, rglru, local) group, whisper at
+#: its full 4 + 4; LM_EQ_BATCH prompts of REC_EQ_SEQ tokens (whisper over
+#: REC_FRAMES frames), prefill of all but REC_EQ_STEPS tokens (two SSD chunks
+#: of 256, the second padded; a 9-pass scan), then REC_EQ_STEPS chained
+#: decode steps against the forward within LM_EQUIV_TOL; the card against
+#: the CPU on the same weights within LM_CPU_TOL; the reduced configs card
+#: against CPU within REC_CPU_TOL (logits, caches, loss, every gradient).
+#: 12b: bf16 at full depth, phase 7b's LM_BATCH prompts of LM_PROMPT tokens
+#: (whisper: REC_WHISPER_PROMPT tokens over REC_FRAMES frames, its 30 s
+#: window) and LM_NEW new tokens
+REC_ARCHS = ("mamba2-2.7b", "recurrentgemma-2b", "whisper-tiny")
+REC_EQ_SEGMENTS = {
+    "mamba2-2.7b": ((("ssd",), 2),),
+    "recurrentgemma-2b": ((("rglru+mlp", "rglru+mlp", "local+mlp"), 1),),
+    "whisper-tiny": None,
+}
+REC_EQ_SEQ, REC_EQ_STEPS, REC_CPU_TOL = 300, 3, 1e-4
+REC_FRAMES, REC_WHISPER_PROMPT = 1500, 64
 #: the bucket histogram's shapes (phase 3b): the main path's 1M walks,
 #: padded to the tile, over its 16 blocks and two larger bucket counts
 HIST_N, HIST_NBS = 1_048_576, (16, 4096, 65536)
@@ -1947,89 +1983,135 @@ def _cut(cfg, segments, **change):
                                segments=segments, **change)  # fmt: skip
 
 
+def _lm_batch(cfg, n: int, seq: int, frames: int, dev) -> dict:
+    """``n`` prompts of ``seq`` tokens from ``default_rng(0)`` (phase 7b's),
+    and for the encoder-decoder ``n`` clips of ``frames`` frame embeddings
+    drawn after them (``examples/serve_lm.py``'s order)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    toks = rng.integers(1, cfg.vocab_size, (n, seq)).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    if cfg.is_encoder_decoder:
+        clips = rng.standard_normal((n, frames, cfg.d_model)).astype(np.float32)
+        batch["frames"] = torch.as_tensor(clips, device=dev)
+    return batch
+
+
+def _decode_vs_forward(cfg, params, batch, steps: int, enc_len: int = 0) -> dict:
+    """Prefill of all but the last ``steps`` tokens of ``batch``, then
+    ``steps`` chained decode steps, each step's logits against the
+    forward's at its position within LM_EQUIV_TOL; ``dropped`` counts the
+    MoE assignments past capacity over all of it."""
+    from repro_torch.models import model_caches, model_decode, model_forward, model_prefill
+    from repro_torch.models.common import tree_map
+
+    toks = batch["tokens"]
+    n, seq = toks.shape
+    first = seq - steps
+    with _Routes() as routes:
+        want = model_forward(params, batch, cfg)[0]
+        _, caches = model_prefill(params, dict(batch, tokens=toks[:, :first]), cfg)
+        target = model_caches(cfg, n, seq + 4, enc_len=enc_len, device=toks.device)
+        caches = tree_map(_lm_pad, caches, target)
+        gaps = []
+        for t in range(first, seq):
+            got, _ = model_decode(params, toks[:, t : t + 1], caches, t, cfg)
+            gaps.append(dict(_lm_logits_gap(got, want[:, t], LM_EQUIV_TOL), position=t))
+    return dict(
+        layers=cfg.n_layers, encoder_layers=cfg.n_encoder_layers, prompt=first, steps=gaps,
+        ok=all(g["ok"] for g in gaps), dropped=sum(_dropped(i, cfg) for i in routes.calls),
+    )  # fmt: skip
+
+
+def _card_vs_cpu(cfg, params, batch, tol: float, *, caches: bool = False) -> dict:
+    """``params`` and ``batch`` on the card and copied to the CPU: the
+    logits, the aux loss, with ``caches`` the prefill caches, the loss and
+    every gradient, each within ``tol`` (float32 with TF32 off on both: the
+    sums' order differs, nothing else), and the MoE layers' top-k ids."""
+    from repro_torch.models import model_forward, model_prefill
+    from repro_torch.models.common import tree_leaves_with_path, tree_map
+    from repro_torch.train import make_loss_fn
+    from repro_torch.train.step import _value_and_grad
+
+    host = (tree_map(lambda a: a.cpu(), params), {k: v.cpu() for k, v in batch.items()})
+    runs = []
+    for p, b in ((params, batch), host):
+        with _Routes() as routes:
+            logits, aux = model_forward(p, b, cfg)
+        tree = {"logits": logits, "aux": aux}
+        if caches:
+            tree["cache"] = model_prefill(p, b, cfg)[1]
+        (tree["loss"], _), tree["grad"] = _value_and_grad(make_loss_fn(cfg), p, b)
+        runs.append((tree, routes.calls))
+    (card, idx), (cpu, h_idx) = runs
+    cpu_flat = dict(tree_leaves_with_path(cpu))
+    checks = {path[1:]: _lm_logits_gap(t, cpu_flat[path], tol)
+              for path, t in tree_leaves_with_path(card)}  # fmt: skip
+    worst = max(checks, key=lambda key: checks[key]["tol_share"])
+    return dict(
+        arch=cfg.name, checks=len(checks), worst=worst, worst_gap=checks[worst],
+        ok=all(c["ok"] for c in checks.values()), aux=float(cpu["aux"]), moe_layers=len(idx),
+        topk_differ=sum(int((a.cpu() != b).sum()) for a, b in zip(idx, h_idx)),
+        dropped=[_dropped(i, cfg) for i in h_idx],
+    )  # fmt: skip
+
+
 def _moe_equivalence(arch, dev) -> dict:
     """11a for one arch: decode against forward at the published widths in
     float32 (nothing dropped), then the reduced config card against CPU."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from repro_torch.configs import get_config, reduced_config
-    from repro_torch.models import model_caches, model_decode, model_forward, model_init
-    from repro_torch.models.common import tree_leaves_with_path, tree_map
-    from repro_torch.train import make_loss_fn, make_prefill_step
-    from repro_torch.train.step import _value_and_grad
+    from repro_torch.models import model_init
 
-    out = {}
     base = get_config(arch)
     ev = base.n_experts * base.moe_virtual_split
     cfg = _cut(base, MOE_EQ_SEGMENTS[arch], dtype=torch.float32, capacity_factor=float(ev))
     params = model_init(0, cfg, device=dev)
-    rng = np.random.default_rng(0)
-    toks = torch.as_tensor(
-        rng.integers(1, cfg.vocab_size, (LM_EQ_BATCH, MOE_EQ_SEQ)).astype(np.int32), device=dev
-    )
-    with _Routes() as routes:
-        want = model_forward(params, {"tokens": toks}, cfg)[0][:, -1]
-        _, caches = make_prefill_step(cfg)(params, {"tokens": toks[:, :-1]})
-        target = model_caches(cfg, LM_EQ_BATCH, MOE_EQ_SEQ + 4, device=dev)
-        caches = tree_map(_lm_pad, caches, target)
-        got, _ = model_decode(params, toks[:, -1:], caches, MOE_EQ_SEQ - 1, cfg)
-    out["decode_vs_forward"] = dict(
-        _lm_logits_gap(got, want, LM_EQUIV_TOL), layers=cfg.n_layers, capacity_factor=float(ev),
-        dropped=sum(_dropped(idx, cfg) for idx in routes.calls),
-    )  # fmt: skip
+    batch = _lm_batch(cfg, LM_EQ_BATCH, MOE_EQ_SEQ, 0, dev)
+    out = {"decode_vs_forward": dict(_decode_vs_forward(cfg, params, batch, 1),
+                                     capacity_factor=float(ev))}  # fmt: skip
     log(f"[lm-moe] 11a {cfg.name} float32, capacity_factor {ev} (no drops), decode vs forward "
         f"(batch {LM_EQ_BATCH}, {MOE_EQ_SEQ} tokens): "
         f"{json.dumps(out['decode_vs_forward'])}")  # fmt: skip
-    del params, caches, target, got, want, routes
+    del params
     torch.cuda.empty_cache()
 
     # the reduced config at the published capacity factor, so assignments
     # drop: the card against the CPU on the same weights
     cfg = dataclasses.replace(reduced_config(arch), capacity_factor=MOE_CF)
     params = model_init(0, cfg, device=dev)
-    host_params = tree_map(lambda a: a.cpu(), params)
     batch = _train_batch(cfg, LM_EQ_BATCH, MOE_EQ_SEQ, dev)
-    host_batch = {k: v.cpu() for k, v in batch.items()}
-    runs = []
-    for p, b in ((params, batch), (host_params, host_batch)):
-        with _Routes() as routes:
-            logits, aux = model_forward(p, b, cfg)
-        (loss, _), grads = _value_and_grad(make_loss_fn(cfg), p, b)
-        runs.append((logits, aux, loss, grads, routes.calls))
-    (logits, aux, loss, grads, idx), (h_logits, h_aux, h_loss, h_grads, h_idx) = runs
-    checks = {"logits": _lm_logits_gap(logits, h_logits, MOE_CPU_TOL),
-              "aux": _lm_logits_gap(aux, h_aux, MOE_CPU_TOL),
-              "loss": _lm_logits_gap(loss, h_loss, MOE_CPU_TOL)}  # fmt: skip
-    host_flat = dict(tree_leaves_with_path(h_grads))
-    for path, g in tree_leaves_with_path(grads):
-        checks["grad" + path] = _lm_logits_gap(g, host_flat[path], MOE_CPU_TOL)
-    worst = max(checks, key=lambda key: checks[key]["tol_share"])
-    out["card_vs_cpu"] = dict(
-        arch=cfg.name, capacity_factor=MOE_CF, aux=float(h_aux), checks=len(checks), worst=worst,
-        worst_gap=checks[worst], ok=all(c["ok"] for c in checks.values()), moe_layers=len(idx),
-        topk_differ=sum(int((a.cpu() != b).sum()) for a, b in zip(idx, h_idx)),
-        dropped=[_dropped(i, cfg) for i in h_idx],
-    )  # fmt: skip
+    out["card_vs_cpu"] = dict(_card_vs_cpu(cfg, params, batch, MOE_CPU_TOL),
+                              capacity_factor=MOE_CF)  # fmt: skip
     log(f"[lm-moe] 11a {cfg.name} card vs CPU (float32, capacity_factor {MOE_CF}; logits, aux, "
         f"loss, every gradient): {json.dumps(out['card_vs_cpu'])}")  # fmt: skip
     return out
 
 
-def _moe_serve(arch, dev) -> dict:
-    """11b for one arch: bf16 at the published widths and capacity factor,
-    the depth cut to MOE_SERVE_SEGMENTS; phase 7b's prompts and steps."""
-    import numpy as np
+def _serve_lm(cfg, dev, *, tag: str, phase: str, prompt: int, bounds, describe: str = "") -> dict:
+    """Phases 11b and 12b for one config: made on the card, LM_BATCH prompts
+    of ``prompt`` tokens (``_lm_batch``; the encoder-decoder's over
+    REC_FRAMES frames) prefilled twice, then LM_NEW - 1 greedy decode steps
+    timed with CUDA events, and the card's busy time under torch.profiler.
+    ``bounds(params, caches, prefill_ids, decode_ids)``, given the MoE
+    layers' top-k ids of the first prefill and the first decode step,
+    returns the prefill's FLOPs and the decode step's bytes (``flops``,
+    ``decode_bytes``), a note on each for the log, the caller's own metrics
+    (``extra``) and log ``lines``.  Fails unless the second prefill is
+    bitwise equal to the first, the logits finite and the tokens inside the
+    vocabulary."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models import model_caches, model_init
-    from repro_torch.models.common import tree_leaves, tree_leaves_with_path, tree_map
+    from repro_torch.models.common import tree_leaves, tree_map
     from repro_torch.train import make_decode_step, make_prefill_step
 
-    cfg = _cut(get_config(arch), MOE_SERVE_SEGMENTS[arch])
+    enc_len = REC_FRAMES if cfg.is_encoder_decoder else 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2037,28 +2119,15 @@ def _moe_serve(arch, dev) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
-    nbytes = lambda t: t.numel() * t.element_size()
     leaves = tree_leaves(params)
     n_params = sum(t.numel() for t in leaves)
-    weight_bytes = sum(nbytes(t) for t in leaves)
-    active = cfg.active_param_count()
-    # one virtual expert's weights in one layer (w_in [d, 2F_v], w_out
-    # [F_v, d]), and the weights outside the routed experts
-    fv = (cfg.moe_d_ff or cfg.d_ff) // cfg.moe_virtual_split
-    expert_bytes = 3 * cfg.d_model * fv * cfg.dtype.itemsize
-    dense_bytes = weight_bytes - sum(
-        nbytes(t) for path, t in tree_leaves_with_path(params) if "/moe/experts/" in path
-    )
-    log(f"[lm-moe] 11b {cfg.name} {cfg.dtype} {cfg.n_layers} layers {list(cfg.layer_kinds)} "
-        f"d_model {cfg.d_model}, {cfg.n_experts} experts x split {cfg.moe_virtual_split}, top "
-        f"{cfg.top_k}, capacity_factor {cfg.capacity_factor}: {n_params:,} parameters "
-        f"({active:,} active), {weight_bytes:,} bytes, made on the card in {init_s:.2f}s, "
-        f"torch.cuda.max_memory_allocated while made {init_peak:,} bytes")  # fmt: skip
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"[{tag}] {phase} {cfg.name} {cfg.dtype} {cfg.n_layers} layers {list(cfg.layer_kinds)} "
+        f"d_model {cfg.d_model}{describe}: {n_params:,} parameters, {weight_bytes:,} bytes, made "
+        f"on the card in {init_s:.2f}s, torch.cuda.max_memory_allocated while made "
+        f"{init_peak:,} bytes")  # fmt: skip
     torch.cuda.reset_peak_memory_stats()
-    rng = np.random.default_rng(0)
-    prompts = torch.as_tensor(
-        rng.integers(1, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32), device=dev
-    )
+    batch = _lm_batch(cfg, LM_BATCH, prompt, REC_FRAMES, dev)
     prefill = make_prefill_step(cfg)
     ev = lambda: torch.cuda.Event(enable_timing=True)
     prefill_ms, results = [], []
@@ -2067,34 +2136,36 @@ def _moe_serve(arch, dev) -> dict:
         torch.cuda.synchronize()
         with _Routes() if i == 0 else contextlib.nullcontext() as routes:
             start.record()
-            results.append(prefill(params, {"tokens": prompts}))
+            results.append(prefill(params, batch))
             stop.record()
         torch.cuda.synchronize()
         prefill_ms.append(start.elapsed_time(stop))
         if i == 0:
-            prefill_routes = routes.calls
+            prefill_ids = routes.calls
     (logits, pcaches), (logits2, pcaches2) = results
     bitwise = torch.equal(logits, logits2) and all(
         torch.equal(a, b) for a, b in zip(tree_leaves(pcaches), tree_leaves(pcaches2))
     )
     del results, logits2, pcaches2
-    max_len = LM_PROMPT + LM_NEW
-    caches = tree_map(_lm_pad, pcaches, model_caches(cfg, LM_BATCH, max_len, device=dev))
-    del pcaches
+    max_len = prompt + LM_NEW
+    target = model_caches(cfg, LM_BATCH, max_len, enc_len=enc_len, device=dev)
+    caches = tree_map(_lm_pad, pcaches, target)
+    del pcaches, target
     prefill_finite = bool(torch.isfinite(logits).all())
     decode = make_decode_step(cfg)
-    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    # the decode step's rule: the best id of the vocabulary, no padded one
+    tok = torch.argmax(logits[..., : cfg.vocab_size], -1).to(torch.int32)[:, None]
     seq, marks = [tok], []
     t0 = time.perf_counter()
     for i in range(LM_NEW - 1):
-        step = {"token": tok, "cache_len": LM_PROMPT + i}
+        step = {"token": tok, "cache_len": prompt + i}
         start, stop = ev(), ev()
         with _Routes() if i == 0 else contextlib.nullcontext() as routes:
             start.record()
             tok, step_logits, caches = decode(params, step, caches)
             stop.record()
         if i == 0:
-            decode_routes = routes.calls
+            decode_ids = routes.calls
         marks.append((start, stop))
         tok = tok[:, None]
         seq.append(tok)
@@ -2104,79 +2175,126 @@ def _moe_serve(arch, dev) -> dict:
     seqs = torch.cat(seq, dim=1).cpu()
     peak = torch.cuda.max_memory_allocated()
     busy = dict(
-        prefill=_device_busy(lambda: prefill(params, {"tokens": prompts}), 1),
+        prefill=_device_busy(lambda: prefill(params, batch), 1),
         decode=_device_busy(
             lambda: decode(params, {"token": tok, "cache_len": max_len - 1}, caches), 5
         ),
     )  # fmt: skip
-    tokens = LM_BATCH * LM_PROMPT
-    flops = 2 * active * tokens
-    # the cache a step reads: every layer's row at the positions filled so
-    # far (the mean over the steps)
-    cache_row = sum(nbytes(t[:, 0, 0]) for t in tree_leaves(caches))
-    cache_bytes = cache_row * LM_BATCH * (LM_PROMPT + (LM_NEW - 1) / 2 + 1)
-    hit = [len(torch.unique(i)) for i in decode_routes]
-    routed_bytes = dense_bytes + expert_bytes * sum(hit)
+    b = bounds(params, caches, prefill_ids, decode_ids)
     median = step_ms[len(step_ms) // 2]
     serve = dict(
-        arch=cfg.name, dtype=str(cfg.dtype), layers=cfg.n_layers, params=n_params,
-        active_params=active, weight_bytes=weight_bytes, batch=LM_BATCH, prompt=LM_PROMPT,
-        new_tokens=LM_NEW, cache_len=max_len, capacity_factor=cfg.capacity_factor,
-        init_s=init_s, init_peak=init_peak,
-        prefill_first_ms=prefill_ms[0], prefill_ms=prefill_ms[1],
-        prefill_tokens_per_s=tokens / (prefill_ms[1] / 1e3), prefill_flops=flops,
-        prefill_bound_ms=flops / BF16_FLOPS_PER_S * 1e3, prefill_bitwise=bitwise,
-        decode_steps=len(step_ms), decode_ms_median=median, decode_ms_min=step_ms[0],
-        decode_ms_max=step_ms[-1], decode_tokens_per_s=LM_BATCH / (median / 1e3),
-        decode_wall_s=decode_wall_s, decode_cache_bytes_mean=cache_bytes,
-        decode_bound_ms=(weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
-        decode_routed_bytes=routed_bytes, experts_hit_decode_step1=hit,
-        decode_routed_bound_ms=(routed_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
-        cache_bytes_per_token_layer=cache_row // cfg.n_layers,
-        assignments_prefill=sum(i.numel() for i in prefill_routes),
-        dropped_prefill=[_dropped(i, cfg) for i in prefill_routes],
-        assignments_decode_step1=sum(i.numel() for i in decode_routes),
-        dropped_decode_step1=[_dropped(i, cfg) for i in decode_routes],
+        arch=cfg.name, dtype=str(cfg.dtype), layers=cfg.n_layers,
+        encoder_layers=cfg.n_encoder_layers, params=n_params, weight_bytes=weight_bytes,
+        batch=LM_BATCH, prompt=prompt, frames=enc_len, new_tokens=LM_NEW, cache_len=max_len,
+        init_s=init_s, init_peak=init_peak, prefill_first_ms=prefill_ms[0],
+        prefill_ms=prefill_ms[1], prefill_tokens_per_s=LM_BATCH * prompt / (prefill_ms[1] / 1e3),
+        prefill_flops=b["flops"], prefill_bound_ms=b["flops"] / BF16_FLOPS_PER_S * 1e3,
+        prefill_bitwise=bitwise, decode_steps=len(step_ms), decode_ms_median=median,
+        decode_ms_min=step_ms[0], decode_ms_max=step_ms[-1],
+        decode_tokens_per_s=LM_BATCH / (median / 1e3), decode_wall_s=decode_wall_s,
+        decode_bytes=b["decode_bytes"], decode_bound_ms=b["decode_bytes"] / HBM_BYTES_PER_S * 1e3,
         max_memory_allocated=peak, seq0=seqs[0].tolist(), device_busy=busy,
         prefill_idle_share=1 - busy["prefill"]["device_ms"] / prefill_ms[1],
-        decode_idle_share=1 - busy["decode"]["device_ms"] / median,
+        decode_idle_share=1 - busy["decode"]["device_ms"] / median, **b["extra"],
     )  # fmt: skip
-    log(f"[lm-moe] 11b {cfg.name} prefill {LM_BATCH} x {LM_PROMPT} tokens: {prefill_ms[1]:.3f} ms "
-        f"(first call {prefill_ms[0]:.3f} ms), {serve['prefill_tokens_per_s']:,.0f} tokens/s; "
-        f"bound {serve['prefill_bound_ms']:.3f} ms = 2 x {active:,} active params x {tokens} "
-        f"tokens / {BF16_FLOPS_PER_S:.3g} FLOP/s; second prefill bitwise equal: "
-        f"{bitwise}")  # fmt: skip
-    log(f"[lm-moe] 11b {cfg.name} decode {len(step_ms)} steps of {LM_BATCH} tokens: median "
+    log(f"[{tag}] {phase} {cfg.name} prefill {LM_BATCH} x {prompt} tokens"
+        f"{f' over {enc_len} frames' if enc_len else ''}: {prefill_ms[1]:.3f} ms (first call "
+        f"{prefill_ms[0]:.3f} ms), {serve['prefill_tokens_per_s']:,.0f} tokens/s; bound "
+        f"{serve['prefill_bound_ms']:.3f} ms = {b['flops_note']} / {BF16_FLOPS_PER_S:.3g} "
+        f"FLOP/s; second prefill bitwise equal: {bitwise}")  # fmt: skip
+    log(f"[{tag}] {phase} {cfg.name} decode {len(step_ms)} steps of {LM_BATCH} tokens: median "
         f"{median:.3f} ms (min {step_ms[0]:.3f}, max {step_ms[-1]:.3f}), "
         f"{serve['decode_tokens_per_s']:,.1f} tokens/s; {decode_wall_s:.3f} s on the host clock; "
-        f"bound {serve['decode_bound_ms']:.4f} ms = ({weight_bytes:,} weight bytes, every "
-        f"expert's, as the capacity path multiplies them all, + {cache_bytes:,.0f} cache bytes, "
-        f"the mean step's) / {HBM_BYTES_PER_S:.3g} B/s; routed experts only "
-        f"{serve['decode_routed_bound_ms']:.4f} ms ({routed_bytes:,} weight bytes: {hit} "
-        f"virtual experts hit per MoE layer at the first step)")  # fmt: skip
+        f"bound {serve['decode_bound_ms']:.4f} ms = ({b['decode_note']}) / "
+        f"{HBM_BYTES_PER_S:.3g} B/s")  # fmt: skip
     for name in ("prefill", "decode"):
-        b = busy[name]
-        log(f"[lm-moe] 11b {cfg.name} {name} on the card (torch.profiler): {b['device_ms']:.3f} "
-            f"ms busy and {b['kernels']:.0f} kernels per call, idle share "
-            f"{serve[name + '_idle_share']:.3f} of the timed call; top "
-            f"{json.dumps(b['top'])}")  # fmt: skip
-    log(f"[lm-moe] 11b {cfg.name} dropped assignments per MoE layer: prefill "
-        f"{serve['dropped_prefill']} of {serve['assignments_prefill']:,} in all, first decode step "
-        f"{serve['dropped_decode_step1']} of {serve['assignments_decode_step1']} in all; cache "
-        f"{serve['cache_bytes_per_token_layer']:,} bytes per token and layer; "
-        f"torch.cuda.max_memory_allocated over prefill + decode {peak:,} bytes")  # fmt: skip
-    log(f"[lm-moe] 11b {cfg.name} seq 0: {serve['seq0']}")
+        log(f"[{tag}] {phase} {cfg.name} {name} on the card (torch.profiler): "
+            f"{busy[name]['device_ms']:.3f} ms busy and {busy[name]['kernels']:.0f} kernels per "
+            f"call, idle share {serve[name + '_idle_share']:.3f} of the timed call; top "
+            f"{json.dumps(busy[name]['top'])}")  # fmt: skip
+    for line in b["lines"]:
+        log(f"[{tag}] {phase} {cfg.name} {line}")
+    log(f"[{tag}] {phase} {cfg.name} torch.cuda.max_memory_allocated over prefill + decode "
+        f"{peak:,} bytes; seq 0: {serve['seq0']}")  # fmt: skip
     if not bitwise:
-        raise AssertionError(f"phase 11b {cfg.name}: two prefills of the same prompts differ")
+        raise AssertionError(f"phase {phase} {cfg.name}: two prefills of the same prompts differ")
     if not (prefill_finite and bool(torch.isfinite(step_logits).all())):
-        raise AssertionError(f"phase 11b {cfg.name}: logits are not finite")
+        raise AssertionError(f"phase {phase} {cfg.name}: logits are not finite")
     if not ((seqs >= 0) & (seqs < cfg.vocab_size)).all():
-        raise AssertionError(f"phase 11b {cfg.name}: a token outside the vocabulary")
+        raise AssertionError(f"phase {phase} {cfg.name}: a token outside the vocabulary")
     if seqs.shape != (LM_BATCH, LM_NEW):
-        raise AssertionError(f"phase 11b {cfg.name}: {tuple(seqs.shape)} tokens")
+        raise AssertionError(f"phase {phase} {cfg.name}: {tuple(seqs.shape)} tokens")
     del params, caches
     torch.cuda.empty_cache()
     return serve
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.models.common import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _moe_serve(arch, dev) -> dict:
+    """11b for one arch: bf16 at the published widths and capacity factor,
+    the depth cut to MOE_SERVE_SEGMENTS; phase 7b's prompts and steps."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves, tree_leaves_with_path
+
+    cfg = _cut(get_config(arch), MOE_SERVE_SEGMENTS[arch])
+    active = cfg.active_param_count()
+
+    def bounds(params, caches, prefill_ids, decode_ids):
+        weight_bytes = _nbytes(params)
+        # one virtual expert's weights in one layer (w_in [d, 2F_v], w_out
+        # [F_v, d]), and the weights outside the routed experts
+        fv = (cfg.moe_d_ff or cfg.d_ff) // cfg.moe_virtual_split
+        expert_bytes = 3 * cfg.d_model * fv * cfg.dtype.itemsize
+        dense_bytes = weight_bytes - sum(
+            _nbytes(t) for path, t in tree_leaves_with_path(params) if "/moe/experts/" in path
+        )
+        tokens = LM_BATCH * LM_PROMPT
+        # the cache a step reads: every layer's row at the positions filled
+        # so far (the mean over the steps)
+        cache_row = sum(_nbytes(t[:, 0, 0]) for t in tree_leaves(caches))
+        cache_bytes = cache_row * LM_BATCH * (LM_PROMPT + (LM_NEW - 1) / 2 + 1)
+        hit = [len(torch.unique(i)) for i in decode_ids]
+        routed_bytes = dense_bytes + expert_bytes * sum(hit)
+        extra = dict(
+            active_params=active, capacity_factor=cfg.capacity_factor,
+            decode_cache_bytes_mean=cache_bytes, decode_routed_bytes=routed_bytes,
+            experts_hit_decode_step1=hit,
+            decode_routed_bound_ms=(routed_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+            cache_bytes_per_token_layer=cache_row // cfg.n_layers,
+            assignments_prefill=sum(i.numel() for i in prefill_ids),
+            dropped_prefill=[_dropped(i, cfg) for i in prefill_ids],
+            assignments_decode_step1=sum(i.numel() for i in decode_ids),
+            dropped_decode_step1=[_dropped(i, cfg) for i in decode_ids],
+        )  # fmt: skip
+        lines = [
+            f"decode bound, routed experts only: {extra['decode_routed_bound_ms']:.4f} ms "
+            f"({routed_bytes:,} weight bytes: {hit} virtual experts hit per MoE layer at the "
+            f"first step, + the cache bytes) / {HBM_BYTES_PER_S:.3g} B/s",
+            f"dropped assignments per MoE layer: prefill {extra['dropped_prefill']} of "
+            f"{extra['assignments_prefill']:,} in all, first decode step "
+            f"{extra['dropped_decode_step1']} of {extra['assignments_decode_step1']} in all; "
+            f"cache {extra['cache_bytes_per_token_layer']:,} bytes per token and layer",
+        ]  # fmt: skip
+        return dict(
+            flops=2 * active * tokens, flops_note=f"2 x {active:,} active params x {tokens} tokens",
+            decode_bytes=weight_bytes + cache_bytes,
+            decode_note=f"{weight_bytes:,} weight bytes, every expert's, as the capacity path "
+            f"multiplies them all, + {cache_bytes:,.0f} cache bytes, the mean step's",
+            extra=extra, lines=lines,
+        )  # fmt: skip
+
+    return _serve_lm(
+        cfg, dev, tag="lm-moe", phase="11b", prompt=LM_PROMPT, bounds=bounds,
+        describe=f", {cfg.n_experts} experts x split {cfg.moe_virtual_split}, top {cfg.top_k}, "
+        f"capacity_factor {cfg.capacity_factor}, {active:,} active parameters",
+    )  # fmt: skip
 
 
 def phase_lm_moe(dev):
@@ -2205,6 +2323,172 @@ def phase_lm_moe(dev):
     out["11b"]["bucket_hist_launches"] = bucket_hist_kernel.launches
     log(f"[lm-moe] phase 11: {time.perf_counter() - t_phase:.1f}s; kernel launches: pair_advance "
         f"{out['11b']['launches']}, bucket_hist {out['11b']['bucket_hist_launches']}")  # fmt: skip
+    return out
+
+
+def _rec_equivalence(arch, dev) -> dict:
+    """12a for one arch: decode against forward at the published widths in
+    float32 (the depth cut to REC_EQ_SEGMENTS), the card against the CPU on
+    the same weights, then the reduced config card against CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import model_forward, model_init
+    from repro_torch.models.common import tree_map
+
+    base = get_config(arch)
+    segments = REC_EQ_SEGMENTS[arch]
+    cfg = _cut(base, segments, dtype=torch.float32) if segments else dataclasses.replace(
+        base, dtype=torch.float32
+    )  # fmt: skip
+    params = model_init(0, cfg, device=dev)
+    batch = _lm_batch(cfg, LM_EQ_BATCH, REC_EQ_SEQ, REC_FRAMES, dev)
+    enc_len = REC_FRAMES if cfg.is_encoder_decoder else 0
+    out = {"decode_vs_forward": _decode_vs_forward(cfg, params, batch, REC_EQ_STEPS, enc_len)}
+    log(f"[lm-rec] 12a {cfg.name} float32 {list(cfg.layer_kinds)}, decode vs forward (batch "
+        f"{LM_EQ_BATCH}, prefill {REC_EQ_SEQ - REC_EQ_STEPS} tokens, {REC_EQ_STEPS} chained "
+        f"steps): {json.dumps(out['decode_vs_forward'])}")  # fmt: skip
+
+    # the same weights and batch on the CPU: every position's logits
+    want = model_forward(params, batch, cfg)[0]
+    t0 = time.perf_counter()
+    host = model_forward(tree_map(lambda a: a.cpu(), params),
+                         {k: v.cpu() for k, v in batch.items()}, cfg)[0]  # fmt: skip
+    out["card_vs_cpu"] = dict(_lm_logits_gap(want, host, LM_CPU_TOL), layers=cfg.n_layers,
+                              cpu_s=time.perf_counter() - t0)  # fmt: skip
+    log(f"[lm-rec] 12a {cfg.name} card vs CPU (same weights, all {REC_EQ_SEQ} positions): "
+        f"{json.dumps(out['card_vs_cpu'])}")  # fmt: skip
+    del params, want, host, batch
+    torch.cuda.empty_cache()
+
+    # the reduced config: logits, prefill caches, loss and every gradient
+    cfg = reduced_config(arch)
+    params = model_init(0, cfg, device=dev)
+    batch = _train_batch(cfg, LM_EQ_BATCH, REC_EQ_SEQ, dev)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = _lm_batch(cfg, LM_EQ_BATCH, 1, REC_EQ_SEQ, dev)["frames"]
+    out["reduced_card_vs_cpu"] = _card_vs_cpu(cfg, params, batch, REC_CPU_TOL, caches=True)
+    log(f"[lm-rec] 12a {cfg.name} card vs CPU (float32; logits, aux, prefill caches, loss, every "
+        f"gradient): {json.dumps(out['reduced_card_vs_cpu'])}")  # fmt: skip
+    return out
+
+
+def _rec_flops(cfg, params, batch: int, seq: int, frames: int) -> int:
+    """A prefill's matrix products: 2 x each weight matrix x the rows it
+    multiplies (the embedding lookup is none; a tied embedding is the
+    head), the depthwise convs, and the attention score and value products
+    (whisper's encoder, cross and causal self attention; recurrentgemma's
+    causal local layers, whose window the prompt does not overrun).  The
+    SSD's chunk products and the RG-LRU scan are left out."""
+    from repro_torch.models.common import tree_leaves
+
+    size = lambda tree: sum(t.numel() for t in tree_leaves(tree))
+    hd_h = cfg.n_heads * cfg.head_dim
+    if not cfg.is_encoder_decoder:
+        weights = size(params) - (0 if cfg.tie_embeddings else params["embed"].numel())
+        local = sum(kind.startswith(("attn", "local")) for kind in cfg.layer_kinds)
+        return 2 * weights * batch * seq + local * 2 * batch * seq * seq * hd_h
+    enc, dec = params["enc_layers"], params["dec_layers"]
+    cross_kv = size(_cross_kv(dec))
+    enc_rows, dec_rows = batch * frames, batch * seq
+    linear = 2 * (size(enc) * enc_rows + (size(dec) - cross_kv) * dec_rows
+                  + cross_kv * enc_rows + params["embed"].numel() * dec_rows)  # fmt: skip
+    # encoder self attention over the frames; per decoder layer causal
+    # self attention and cross attention to the frames
+    attention = hd_h * (cfg.n_encoder_layers * 4 * enc_rows * frames
+                        + cfg.n_layers * (2 * dec_rows * seq + 4 * dec_rows * frames))  # fmt: skip
+    return linear + attention
+
+
+def _cross_kv(dec_layers) -> list:
+    """The decoder's cross-attention K and V projections (and biases): they
+    act on the encoder's states once, at prefill, and no decode step reads
+    them (the cross caches hold their products)."""
+    cross = dec_layers["cross_attn"]
+    return [cross[k] for k in ("wk", "wv", "bk", "bv") if k in cross]
+
+
+def _rec_serve(arch, dev) -> dict:
+    """12b for one arch: bf16 at the published widths and depth; phase 7b's
+    prompts (whisper: 64-token prompts over 1,500-frame clips), prefill
+    twice, then LM_NEW - 1 greedy decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_leaves_with_path
+
+    cfg = get_config(arch)
+    prompt = REC_WHISPER_PROMPT if cfg.is_encoder_decoder else LM_PROMPT
+
+    def bounds(params, caches, prefill_ids, decode_ids):
+        flops = _rec_flops(cfg, params, LM_BATCH, prompt, REC_FRAMES)
+        # the weights a step reads: all but an untied embedding table (B
+        # rows are looked up) and, for the encoder-decoder, the encoder's,
+        # the cross K/V projections and the position tables (one row)
+        if cfg.is_encoder_decoder:
+            dec = params["dec_layers"]
+            read_bytes = (_nbytes(dec) - _nbytes(_cross_kv(dec)) + _nbytes(params["dec_ln"])
+                          + _nbytes(params["embed"]))  # fmt: skip
+        else:
+            read_bytes = _nbytes(params) - (0 if cfg.tie_embeddings else _nbytes(params["embed"]))
+        # the state a step reads and writes: the recurrent state (SSD,
+        # RG-LRU and the conv tails) whole, read and written back; of the KV
+        # caches the positions filled so far (the mean over the steps),
+        # read, and the cross K/V whole
+        state_bytes = cache_bytes = 0
+        for path, t in tree_leaves_with_path(caches):
+            if path.endswith(("/ssm", "/h", "/conv")):
+                state_bytes += _nbytes(t)
+            elif "/cross/" in path:
+                cache_bytes += _nbytes(t)
+            else:  # K/V [.., B, L, KVH, HD]: one row per filled position
+                row = _nbytes(t) // t.shape[-3]
+                cache_bytes += row * min(t.shape[-3], prompt + (LM_NEW - 1) / 2 + 1)
+        per_seq = _nbytes(caches) / LM_BATCH
+        extra = dict(
+            decode_weight_bytes=read_bytes, decode_state_bytes=state_bytes,
+            decode_cache_bytes_mean=cache_bytes, cache_bytes_per_sequence=per_seq,
+        )  # fmt: skip
+        return dict(
+            flops=flops, flops_note=f"{flops:,} FLOPs (matrix products; see _rec_flops)",
+            decode_bytes=read_bytes + 2 * state_bytes + cache_bytes,
+            decode_note=f"{read_bytes:,} weight bytes read + 2 x {state_bytes:,} recurrent state "
+            f"bytes, read and written + {cache_bytes:,.0f} KV cache bytes, the mean step's",
+            extra=extra,
+            lines=[f"state and caches {per_seq:,.0f} bytes per sequence at {prompt + LM_NEW} "
+                   "positions"],
+        )  # fmt: skip
+
+    describe = f", {cfg.n_encoder_layers} encoder layers" if cfg.n_encoder_layers else ""
+    return _serve_lm(cfg, dev, tag="lm-rec", phase="12b", prompt=prompt, bounds=bounds,
+                     describe=describe)  # fmt: skip
+
+
+def phase_lm_recurrent(dev):
+    """Phase 12: serving the SSD, RG-LRU and encoder-decoder models at their
+    published widths (12a equivalence in float32, 12b serving in bfloat16)."""
+    import torch
+
+    from repro_torch.kernels.bucket_hist import bucket_hist_kernel
+    from repro_torch.kernels.pair_advance import fused_advance_pair
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    out = {"12a": {arch: _rec_equivalence(arch, dev) for arch in REC_ARCHS}}
+    for arch, eq in out["12a"].items():
+        for key in ("decode_vs_forward", "card_vs_cpu", "reduced_card_vs_cpu"):
+            if not eq[key]["ok"]:
+                raise AssertionError(f"phase 12a {arch}: {key} outside its tolerance: {eq[key]}")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    fused_advance_pair.launches = 0
+    bucket_hist_kernel.launches = 0
+    out["12b"] = {arch: _rec_serve(arch, dev) for arch in REC_ARCHS}
+    out["12b"]["launches"] = fused_advance_pair.launches
+    out["12b"]["bucket_hist_launches"] = bucket_hist_kernel.launches
+    log(f"[lm-rec] phase 12: {time.perf_counter() - t_phase:.1f}s; kernel launches: pair_advance "
+        f"{out['12b']['launches']}, bucket_hist {out['12b']['bucket_hist_launches']}")  # fmt: skip
     return out
 
 
@@ -2311,11 +2595,13 @@ def main(argv=None) -> int:
     harness = phase_harness(dev)
     distributed = phase_distributed(dev, oracle_counts, args.src)
     lm_moe = phase_lm_moe(dev)
+    lm_rec = phase_lm_recurrent(dev)
     # ``launches`` counts the main paths only: the walk launcher, the
     # full-size hot-set server, LM serving and LM training (which run
     # neither kernel), the train launcher (its corpus's advances), the
-    # distributed engine at full size (10a) and MoE / MLA serving (11b,
-    # neither kernel); the LRU server, the launcher
+    # distributed engine at full size (10a), MoE / MLA serving (11b) and
+    # SSD / RG-LRU / encoder-decoder serving (12b), neither kernel; the LRU
+    # server, the launcher
     # at its small defaults and the 4-rank gloo run are listed beside them
     # in ``launches_by_path``
     def by_path(key):
@@ -2323,7 +2609,8 @@ def main(argv=None) -> int:
                 "lm serve": lm["7b"][key], "lm train": lm_train["8b"][key],
                 "lm train launcher": harness["9b"][key],
                 "distributed": distributed["10a"]["cuda"][key],
-                "lm serve moe/mla": lm_moe["11b"][key]}  # fmt: skip
+                "lm serve moe/mla": lm_moe["11b"][key],
+                "lm serve ssm/rglru/encdec": lm_rec["12b"][key]}  # fmt: skip
         other = {"serve lru": serving["6b"]["lru"][key], "serve launcher": serving["6c"][key],
                  f"distributed {DIST_RANKS} ranks (gloo)": distributed["10b"][key]}  # fmt: skip
         return sum(main.values()), {**main, **other}
@@ -2358,7 +2645,7 @@ def main(argv=None) -> int:
         card=card, build_s=build_s, variants=rows, bucket_hist=hist, kernel_tier=tier,
         whole_run=whole, other_engines=engines, main_runs=phases, serve=serving, lm=lm,
         lm_train=lm_train, lm_harness=harness, distributed=distributed, lm_moe=lm_moe,
-        total_s=elapsed(),
+        lm_recurrent=lm_rec, total_s=elapsed(),
     ), indent=1))  # fmt: skip
     log(f"[done] {elapsed():.1f}s")
     log(card)

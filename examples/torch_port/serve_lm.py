@@ -48,6 +48,10 @@ def main():
     batch = {"tokens": prompts}
     if cfg.frontend == "vision":
         batch["prefix"] = torch.zeros((B, cfg.num_prefix, cfg.d_model), dtype=cfg.dtype, device=dev)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.as_tensor(
+            rng.standard_normal((B, P, cfg.d_model)).astype(np.float32), device=dev
+        )
 
     max_len = P + args.new_tokens + (cfg.num_prefix if cfg.frontend == "vision" else 0)
     t0 = time.time()

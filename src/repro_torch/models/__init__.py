@@ -2,10 +2,9 @@
 
 Pure functions over parameter trees with the JAX package's layout;
 :class:`~repro_torch.models.module.DecoderLM` holds a tree as an
-``nn.Module``.  The decoders with attention, sliding-window or latent
-(MLA) attention blocks and dense or MoE MLPs run, VLM prefix included; the
-SSD and RG-LRU block kinds and the encoder-decoder kind raise
-``NotImplementedError``.
+``nn.Module``.  Every kind of the JAX package runs: decoders with
+attention, sliding-window, latent (MLA), SSD (mamba2) or RG-LRU blocks and
+dense or MoE MLPs, VLM prefix included, and the encoder-decoder (whisper).
 """
 
 from .common import ModelConfig, padded_vocab

@@ -1,4 +1,4 @@
-"""The decoder LM as an ``nn.Module``.
+"""The registry's models as an ``nn.Module``.
 
 :class:`DecoderLM` holds a parameter tree of :func:`model_init` (or of
 :func:`repro_torch.convert.lm_params_from_arrays`) as the module's
@@ -46,8 +46,9 @@ def _unwrap(mod):
 
 
 class DecoderLM(nn.Module):
-    """A decoder LM (dense or MoE, attention or MLA, with or without a VLM
-    prefix) over ``params``."""
+    """A model of any kind the registry runs (a decoder LM with attention,
+    MLA, SSD or RG-LRU blocks, dense or MoE, with or without a VLM prefix;
+    or an encoder-decoder) over ``params``."""
 
     def __init__(self, params: dict, cfg: ModelConfig):
         super().__init__()
@@ -68,8 +69,10 @@ class DecoderLM(nn.Module):
     def prefill(self, batch: Dict[str, Any]):
         return model_prefill(self.params(), batch, self.cfg)
 
-    def caches(self, batch: int, max_len: int):
-        return model_caches(self.cfg, batch, max_len, device=self.tree.embed.device)
+    def caches(self, batch: int, max_len: int, *, enc_len: int = 0):
+        return model_caches(
+            self.cfg, batch, max_len, enc_len=enc_len, device=self.tree.embed.device
+        )
 
     def decode(self, token, caches, cache_len):
         return model_decode(self.params(), token, caches, cache_len, self.cfg)

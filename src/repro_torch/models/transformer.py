@@ -2,10 +2,8 @@
 
 The port of ``repro/models/transformer.py``.  A config's ``segments`` is a
 tuple of ``(pattern, n_groups)``; each pattern entry is
-``"<block>[+<mlp>]"``.  The port runs the block kinds ``attn``, ``local``
-and ``mla`` with the mlp kinds ``mlp`` and ``moe`` (the dense decoders,
-mixtral and deepseek); ``ssd`` and ``rglru`` raise
-``NotImplementedError`` until their modules are ported.
+``"<block>[+<mlp>]"`` with block in {attn, local, mla, ssd, rglru} and mlp
+in {mlp, moe}.
 
 The parameter and cache trees have the JAX package's layout: a segment's
 tensors are stacked on a leading group axis (as ``jax.vmap`` and
@@ -43,6 +41,8 @@ from .common import (
 )
 from .mla import init_mla_cache, mla_apply, mla_decode, mla_init
 from .moe import moe_apply, moe_init
+from .rglru import init_rglru_cache, rglru_apply, rglru_decode, rglru_init
+from .ssm import init_ssd_cache, ssd_apply, ssd_decode, ssd_init
 
 __all__ = [
     "init_params",
@@ -53,13 +53,6 @@ __all__ = [
     "parse_kind",
 ]
 
-#: block and mlp kinds of the JAX package that wait for their modules
-_NOT_PORTED = {
-    "ssd": "models/ssm.py",
-    "rglru": "models/rglru.py",
-}
-
-
 def parse_kind(kind: str) -> Tuple[str, Optional[str]]:
     if "+" in kind:
         b, m = kind.split("+")
@@ -68,15 +61,9 @@ def parse_kind(kind: str) -> Tuple[str, Optional[str]]:
 
 
 def _check_kind(kind: str) -> Tuple[str, Optional[str]]:
-    """``parse_kind``, raising on a kind the port cannot run."""
+    """``parse_kind``, raising ``ValueError`` on an unknown kind."""
     block, mlp = parse_kind(kind)
-    for part in (block, mlp):
-        if part in _NOT_PORTED:
-            raise NotImplementedError(
-                f"layer kind {kind!r}: {part!r} is not ported to PyTorch yet "
-                f"({_NOT_PORTED[part]}, ROADMAP.md section 1, item 6)"
-            )
-    if block not in ("attn", "local", "mla"):
+    if block not in ("attn", "local", "mla", "ssd", "rglru"):
         raise ValueError(f"unknown block kind {block!r}")
     if mlp not in (None, "mlp", "moe"):
         raise ValueError(f"unknown mlp kind {mlp!r}")
@@ -101,7 +88,12 @@ def _stack(trees):
 def _block_init(gen: torch.Generator, kind: str, cfg: ModelConfig) -> dict:
     block, mlp = _check_kind(kind)
     p: Dict[str, Any] = {"norm1": torch.zeros((cfg.d_model,), dtype=torch.float32)}
-    p["attn"] = mla_init(gen, cfg) if block == "mla" else attn_init(gen, cfg)
+    if block == "ssd":
+        p["ssd"] = ssd_init(gen, cfg)
+    elif block == "rglru":
+        p["rglru"] = rglru_init(gen, cfg)
+    else:
+        p["attn"] = mla_init(gen, cfg) if block == "mla" else attn_init(gen, cfg)
     if mlp is not None:
         p["norm2"] = torch.zeros((cfg.d_model,), dtype=torch.float32)
         p[mlp] = mlp_init(gen, cfg) if mlp == "mlp" else moe_init(gen, cfg)
@@ -154,7 +146,11 @@ def _apply_block(p, x, kind: str, cfg: ModelConfig, *, collect_cache: bool):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     cache = None
-    if block == "mla":
+    if block in ("ssd", "rglru"):
+        out, st = (ssd_apply if block == "ssd" else rglru_apply)(p[block], h, cfg)
+        if collect_cache:
+            cache = st
+    elif block == "mla":
         out, lat = mla_apply(p["attn"], h, cfg)
         if collect_cache:
             cache = {"ckv": lat}
@@ -279,7 +275,11 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int):
         one_group = {}
         for j, kind in enumerate(pattern):
             block, _ = _check_kind(kind)
-            if block == "mla":
+            if block == "ssd":
+                one_group[f"pos{j}"] = init_ssd_cache(cfg, batch)
+            elif block == "rglru":
+                one_group[f"pos{j}"] = init_rglru_cache(cfg, batch)
+            elif block == "mla":
                 one_group[f"pos{j}"] = init_mla_cache(cfg, batch, max_len)
             else:
                 window = cfg.window if block == "local" else None
@@ -311,7 +311,11 @@ def decode_step(params, token, caches, cache_len, cfg: ModelConfig):
                 p = gp[f"pos{j}"]
                 hn = rms_norm(x, p["norm1"], cfg.norm_eps)
                 c = gc[f"pos{j}"]
-                if block == "mla":
+                if block == "ssd":
+                    out, _ = ssd_decode(p["ssd"], hn, c, cfg)
+                elif block == "rglru":
+                    out, _ = rglru_decode(p["rglru"], hn, c, cfg)
+                elif block == "mla":
                     out, _ = mla_decode(p["attn"], hn, c, cache_len, cfg)
                 else:
                     window = cfg.window if block == "local" else None

@@ -96,13 +96,17 @@ def make_prefill_step(cfg: ModelConfig):
 def make_decode_step(cfg: ModelConfig, *, sample: bool = False):
     """The next token is the ``argmax`` of the logits whether or not
     ``sample`` is set: both branches of the JAX package's step take it.
+    The ``argmax`` runs over the vocabulary's ids only: the head's padded
+    columns (``vocab_padded``) are never trained, as the loss masks them,
+    and the JAX package's step can return one of them, an id that is no
+    token; where the vocabulary needs no padding the two steps agree.
     The step updates ``caches`` in place."""
 
     def decode_step(params, batch, caches):
         logits, new_caches = model_decode(
             params, batch["token"], caches, batch["cache_len"], cfg
         )
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        next_tok = torch.argmax(logits[..., : cfg.vocab_size], dim=-1).to(torch.int32)
         return next_tok, logits, new_caches
 
     return decode_step

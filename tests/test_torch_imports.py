@@ -8,8 +8,9 @@
   ``data``, ``checkpoint``, ``runtime`` and ``core.distributed`` export the
   JAX package's names, but for the documented differences; the last six
   take the JAX package's parameters (``core.distributed`` adds only the
-  port's ``device`` and ``advance_impl`` keywords); ``models.moe`` and
-  ``models.mla`` too, but for the init functions' generator.
+  port's ``device`` and ``advance_impl`` keywords); ``models.moe``,
+  ``models.mla``, ``models.ssm``, ``models.rglru`` and ``models.encdec``
+  too, but for the init functions' generator.
 * An engine built with the default device raises a clear error on a host
   without a CUDA device instead of falling back to the CPU.
 """
@@ -70,6 +71,9 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
         "repro_torch.models.attention",
         "repro_torch.models.moe",
         "repro_torch.models.mla",
+        "repro_torch.models.ssm",
+        "repro_torch.models.rglru",
+        "repro_torch.models.encdec",
         "repro_torch.models.transformer",
         "repro_torch.models.module",
         "repro_torch.configs",
@@ -256,30 +260,52 @@ def test_train_and_optim_signatures_match_jax():
         assert differ == _SIGNATURE_DIFFS[pkg], pkg
 
 
-def test_moe_and_mla_signatures_match_jax_but_for_the_generator():
-    """``models.moe`` and ``models.mla`` export the JAX modules' names, and
-    each takes the JAX function's parameters (names, kinds, defaults, in
-    order), but for the init functions' first: a ``torch.Generator``
-    ``gen`` where the JAX one takes a PRNG ``key``, as ``attn_init``."""
+def _model_signatures(pkgs):
+    """``_SIGNATURES_PROBE``'s (JAX, port) parameters of each exported name."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
-    pkgs = ["models.moe", "models.mla"]
     out = subprocess.run(
         [sys.executable, "-c", _SIGNATURES_PROBE, *pkgs],
         capture_output=True, text=True, env=env, check=True,
     ).stdout  # fmt: skip
-    import importlib
     import json
 
-    res = json.loads(out.strip().splitlines()[-1])
-    assert sorted(res["models.moe"]) == ["moe_apply", "moe_init"]
-    assert sorted(res["models.mla"]) == ["init_mla_cache", "mla_apply", "mla_decode", "mla_init"]
-    for pkg in pkgs:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _same_but_for_the_generator(res):
+    """Each module exports the JAX module's names, and each takes the JAX
+    function's parameters (names, kinds, defaults, in order), but for the
+    init functions' first: a ``torch.Generator`` ``gen`` where the JAX one
+    takes a PRNG ``key``, as ``attn_init``."""
+    import importlib
+
+    for pkg in res:
         assert sorted(importlib.import_module("repro_torch." + pkg).__all__) == sorted(res[pkg])
         for name, (jax_params, port_params) in res[pkg].items():
             if name.endswith("_init"):
                 assert jax_params[0][0] == "key" and port_params[0][0] == "gen", name
                 jax_params, port_params = jax_params[1:], port_params[1:]
             assert port_params == jax_params, f"{pkg}.{name}"
+
+
+def test_moe_and_mla_signatures_match_jax_but_for_the_generator():
+    res = _model_signatures(["models.moe", "models.mla"])
+    assert sorted(res["models.moe"]) == ["moe_apply", "moe_init"]
+    assert sorted(res["models.mla"]) == ["init_mla_cache", "mla_apply", "mla_decode", "mla_init"]
+    _same_but_for_the_generator(res)
+
+
+def test_recurrent_and_encdec_signatures_match_jax_but_for_the_generator():
+    res = _model_signatures(["models.ssm", "models.rglru", "models.encdec"])
+    assert sorted(res["models.ssm"]) == ["init_ssd_cache", "ssd_apply", "ssd_decode", "ssd_init"]
+    assert sorted(res["models.rglru"]) == [
+        "init_rglru_cache", "rglru_apply", "rglru_decode", "rglru_init",
+    ]  # fmt: skip
+    assert sorted(res["models.encdec"]) == [
+        "encdec_decode_step", "encdec_forward", "encdec_init", "encdec_prefill", "encode",
+        "init_decoder_caches",
+    ]  # fmt: skip
+    _same_but_for_the_generator(res)
 
 
 def test_distributed_signatures_match_jax_but_for_device_and_advance():

@@ -6,13 +6,14 @@ port gets the JAX package's weights through
 ``repro_torch.convert.lm_params_from_arrays``.  Covered: chunked attention
 on the flash grid, single-token decode against a linear and a ring cache,
 forward / prefill (logits and every cache leaf) / decode for the reduced
-configs of the five dense decoders (and a windowed variant) and of the MoE
+configs of the five dense decoders (and a windowed variant), of the MoE
 decoders (mixtral: sliding window + MoE; deepseek: MLA + MoE with shared
-experts), greedy tokens, ``moe_apply`` with tokens dropped, tied router
-probabilities and the virtual expert split, ``mla_decode`` at every kind of
-cache slot, the decode-matches-forward equivalence inside the port, a
-bfloat16 tree carried across bit for bit, every config's fields, and the
-kinds the port does not run yet.
+experts) and of the recurrent and encoder-decoder models (mamba2: SSD;
+recurrentgemma: RG-LRU + local attention; whisper), greedy tokens,
+``moe_apply`` with tokens dropped, tied router probabilities and the
+virtual expert split, ``mla_decode`` at every kind of cache slot, the
+decode-matches-forward equivalence inside the port, bfloat16 trees carried
+across bit for bit, and every config's fields and parameter count.
 """
 
 import dataclasses
@@ -78,12 +79,18 @@ EQUIV_TOL = 2e-3
 DENSE = ["llama3.2-1b", "qwen1.5-0.5b", "phi3-mini-3.8b", "yi-34b", "internvl2-1b"]
 #: the MoE decoders: mixtral (sliding window + MoE), deepseek (MLA + MoE)
 MOE = ["deepseek-v2-236b", "mixtral-8x22b"]
-NOT_PORTED = sorted(set(jconfigs.ARCH_IDS) - set(DENSE) - set(MOE))
+#: mamba2 (SSD), recurrentgemma (RG-LRU + local attention whose window the
+#: prompt overruns) and whisper (encoder-decoder)
+RECURRENT = ["mamba2-2.7b", "recurrentgemma-2b", "whisper-tiny"]
 #: the dense decoders, plus llama's reduced config with windowed ('local')
-#: layers whose window the prompt overruns, so the ring cache wraps, and
-#: the MoE decoders
-CASES = DENSE + ["llama3.2-1b/local"] + MOE
+#: layers whose window the prompt overruns, so the ring cache wraps, the
+#: MoE decoders and the recurrent and encoder-decoder models
+CASES = DENSE + ["llama3.2-1b/local"] + MOE + RECURRENT
 B, S = 2, 24
+#: chained decode steps after a prefill: the recurrent state and the ring
+#: caches are written in place, so a step that returned fresh tensors would
+#: pass one step and fail the next
+STEPS = 3
 
 
 def _configs(case):
@@ -105,12 +112,16 @@ def _close(got, want, tol=ATOL, what=""):
 
 
 def _batch(cfg, rng, seq=S):
-    """The same batch for both packages: (JAX batch, port batch)."""
+    """The same batch for both packages: (JAX batch, port batch).  The
+    encoder-decoder gets ``seq`` frames."""
     toks = rng.integers(1, cfg.vocab_size, (B, seq)).astype(np.int32)
     jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.as_tensor(toks)}
     if cfg.frontend == "vision":
         prefix = rng.standard_normal((B, cfg.num_prefix, cfg.d_model)).astype(np.float32)
         jb["prefix"], tb["prefix"] = jnp.asarray(prefix), torch.as_tensor(prefix)
+    if cfg.is_encoder_decoder:
+        frames = rng.standard_normal((B, seq, cfg.d_model)).astype(np.float32)
+        jb["frames"], tb["frames"] = jnp.asarray(frames), torch.as_tensor(frames)
     return jb, tb
 
 
@@ -277,7 +288,8 @@ def test_mla_decode_matches_jax(length, pos):
 
 
 def test_model_matches_jax(model):
-    """forward, prefill (logits and every cache leaf) and one decode step."""
+    """forward, prefill (logits and every cache leaf) and STEPS chained
+    decode steps, the port's caches written in place."""
     case, jcfg, tcfg, jparams, tparams = model
     jb, tb = _batch(jcfg, np.random.default_rng(2))
     _close(model_forward(tparams, tb, tcfg)[0], j_forward(jparams, jb, jcfg)[0], what=case)
@@ -289,14 +301,18 @@ def test_model_matches_jax(model):
              jax.tree.map(np.asarray, jcache))  # fmt: skip
 
     pos = S + _prefix_len(jcfg)
-    jcache = _pad_jax(jcache, j_caches(jcfg, B, pos + 4))
-    tcache = _pad_port(tcache, model_caches(tcfg, B, pos + 4, device="cpu"))
-    tok = np.random.default_rng(3).integers(1, jcfg.vocab_size, (B, 1)).astype(np.int32)
-    jlogits, jcache = j_decode(jparams, jnp.asarray(tok), jcache, jnp.int32(pos), jcfg)
-    tlogits, tcache = model_decode(tparams, torch.as_tensor(tok), tcache, pos, tcfg)
-    _close(tlogits, jlogits, what=case)
-    tree_map(lambda t, j: _close(t, j, what=f"{case} decode cache"), tcache,
-             jax.tree.map(np.asarray, jcache))  # fmt: skip
+    jcache = _pad_jax(jcache, j_caches(jcfg, B, pos + 4, enc_len=S))
+    tcache = _pad_port(tcache, model_caches(tcfg, B, pos + 4, enc_len=S, device="cpu"))
+    ptrs = [t.data_ptr() for t in tree_leaves(tcache)]
+    rng = np.random.default_rng(3)
+    for i in range(STEPS):
+        tok = rng.integers(1, jcfg.vocab_size, (B, 1)).astype(np.int32)
+        jlogits, jcache = j_decode(jparams, jnp.asarray(tok), jcache, jnp.int32(pos + i), jcfg)
+        tlogits, returned = model_decode(tparams, torch.as_tensor(tok), tcache, pos + i, tcfg)
+        assert returned is tcache and [t.data_ptr() for t in tree_leaves(tcache)] == ptrs
+        _close(tlogits, jlogits, what=f"{case} step {i}")
+        tree_map(lambda t, j: _close(t, j, what=f"{case} step {i} decode cache"), tcache,
+                 jax.tree.map(np.asarray, jcache))  # fmt: skip
 
 
 def test_greedy_tokens_match_jax(model):
@@ -309,11 +325,11 @@ def test_greedy_tokens_match_jax(model):
     max_len = pos + new_tokens
 
     jlogits, jcache = j_prefill(jparams, jb, jcfg)
-    jcache = _pad_jax(jcache, j_caches(jcfg, B, max_len))
+    jcache = _pad_jax(jcache, j_caches(jcfg, B, max_len, enc_len=prompt))
     jstep = jax.jit(j_make_decode_step(jcfg))
     jtok = jnp.argmax(jlogits, -1).astype(jnp.int32)[:, None]
     tlogits, tcache = model_prefill(tparams, tb, tcfg)
-    tcache = _pad_port(tcache, model_caches(tcfg, B, max_len, device="cpu"))
+    tcache = _pad_port(tcache, model_caches(tcfg, B, max_len, enc_len=prompt, device="cpu"))
     tstep = make_decode_step(tcfg)
     ttok = torch.argmax(tlogits, -1).to(torch.int32)[:, None]
     jseq, tseq = [jtok], [ttok]
@@ -332,31 +348,40 @@ def test_greedy_tokens_match_jax(model):
 @pytest.mark.parametrize("case", CASES)
 def test_decode_matches_forward_in_port(case):
     """tests/test_models.py::test_decode_matches_forward on the port alone,
-    with its own weights: forward's logits at the last position equal
-    prefill(tokens[:-1]) followed by one decode step."""
+    with its own weights: forward's logits at each of the last STEPS
+    positions equal prefill of the tokens before them followed by chained
+    decode steps."""
     _, cfg = _configs(case)
     params = model_init(2, cfg, device="cpu")
     _, batch = _batch(cfg, np.random.default_rng(2))
     toks = batch["tokens"]
-    want = model_forward(params, batch, cfg)[0][:, -1]
-    _, caches = model_prefill(params, dict(batch, tokens=toks[:, :-1]), cfg)
+    want = model_forward(params, batch, cfg)[0]
+    first = S - STEPS
+    _, caches = model_prefill(params, dict(batch, tokens=toks[:, :first]), cfg)
     prefix = _prefix_len(cfg)
-    caches = _pad_port(caches, model_caches(cfg, B, S + prefix + 4, device="cpu"))
-    got, _ = model_decode(params, toks[:, -1:], caches, S - 1 + prefix, cfg)
-    _close(got, want, EQUIV_TOL, case)
+    caches = _pad_port(caches, model_caches(cfg, B, S + prefix + 4, enc_len=S, device="cpu"))
+    for t in range(first, S):
+        got, _ = model_decode(params, toks[:, t : t + 1], caches, t + prefix, cfg)
+        _close(got, want[:, t], EQUIV_TOL, f"{case} position {t}")
 
 
-def test_decoder_module_matches_functions():
-    _, cfg = _configs("internvl2-1b")
+@pytest.mark.parametrize(
+    "arch,weight",
+    [("internvl2-1b", "tree.segments.0.pos0.attn.wq"),
+     ("whisper-tiny", "tree.dec_layers.cross_attn.wk")],
+)  # fmt: skip
+def test_decoder_module_matches_functions(arch, weight):
+    _, cfg = _configs(arch)
     lm = DecoderLM.init(5, cfg, device="cpu")
     params = model_init(5, cfg, device="cpu")
     tree_map(lambda a, b: torch.equal(a, b) or pytest.fail("weights differ"), lm.params(), params)
-    assert "tree.segments.0.pos0.attn.wq" in lm.state_dict()
+    assert weight in lm.state_dict()
     assert sum(p.numel() for p in lm.parameters()) == cfg.param_count()
     _, batch = _batch(cfg, np.random.default_rng(6))
     assert torch.equal(lm(batch)[0], model_forward(params, batch, cfg)[0])
     logits, caches = lm.prefill(batch)
-    caches = _pad_port(caches, lm.caches(B, S + cfg.num_prefix + 1))
+    # the encoder-decoder's cross caches hold the S frames' K/V
+    caches = _pad_port(caches, lm.caches(B, S + cfg.num_prefix + 1, enc_len=S))
     want, _ = model_prefill(params, batch, cfg)
     assert torch.equal(logits, want)
     tok = torch.argmax(logits, -1)[:, None]
@@ -365,12 +390,13 @@ def test_decoder_module_matches_functions():
 
 
 # ---------------------------------------------------------------------------
-# weights carried across, configs, what is not ported
+# weights carried across, configs
 # ---------------------------------------------------------------------------
 
 
-def test_bf16_tree_carried_bitwise():
-    jcfg, tcfg = _configs("qwen1.5-0.5b")  # QKV biases too
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", *RECURRENT])  # qwen: QKV biases too
+def test_bf16_tree_carried_bitwise(arch):
+    jcfg, tcfg = _configs(arch)
     jcfg = dataclasses.replace(jcfg, dtype=jnp.bfloat16)
     tcfg = dataclasses.replace(tcfg, dtype=torch.bfloat16)
     arrays = jax.tree.map(np.asarray, j_init(jax.random.PRNGKey(7), jcfg))
@@ -432,25 +458,13 @@ def test_config_registry_matches_jax():
         tconfigs.get_config("gpt-2")
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_param_count_from_shapes_matches_jax(arch):
     """At the published widths, on the meta device: nothing is allocated."""
     jcfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
     assert tcfg.param_count() == jcfg.param_count()
     assert tcfg.active_param_count() == jcfg.active_param_count()
     assert all(t.device.type == "meta" for t in tree_leaves(init_params_shape(tcfg)))
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_kinds_not_ported_raise(arch):
-    cfg = tconfigs.reduced_config(arch)
-    for call in (
-        lambda: model_init(0, cfg, device="cpu"),
-        lambda: model_caches(cfg, B, S, device="cpu"),
-        lambda: init_params_shape(cfg),
-    ):
-        with pytest.raises(NotImplementedError, match="not ported to PyTorch yet"):
-            call()
 
 
 @pytest.fixture
@@ -488,7 +502,7 @@ def _shape_of_output(text):
     return re.sub(r"\[[\d, ]+\]", lambda m: f"[{len(m.group(0).split(','))} tokens]", text)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", *MOE])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", *MOE, *RECURRENT])
 def test_serve_lm_twin_prints_what_the_jax_example_prints(arch):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
 
