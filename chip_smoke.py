@@ -150,6 +150,26 @@ Phases (each raises on failure, so the script exits non-zero):
    bounds, kernels per call and idle share, peak memory, the state and
    cache bytes per sequence; logits finite, tokens inside the vocabulary.
    The phase launches neither kernel.
+13. expert-parallel MoE serving — ``models.moe``'s ``all_to_all`` dispatch
+   under the rules of ``repro_torch.sharding.context``, in phase 11's two
+   decoders: (13a) NCCL, world size 1, a ``(1, 1)`` ``DeviceMesh``, phase
+   11b's cut, capacity factor, prompts and steps on the capacity path and
+   on the expert-parallel path from the same weights: the prefill logits
+   bitwise equal; the decode tokens compared (at 8 tokens the two
+   capacity rules differ: the expert-parallel one keeps at least 4 rows an
+   expert); 80 prompts of 16 tokens and 3 decode steps, where the two
+   capacities agree, bitwise equal; times beside 11b's bounds, kernels per
+   call, each ``all_to_all`` timed by CUDA events, and a cProfile of one
+   decode step on each path; (13b) EP_RANKS gloo ranks, spawned processes
+   sharing the card on a ``(1, EP_RANKS)`` mesh, each holding only its
+   experts' rows (the ranks make the model in turn): (i) phase 11a's cut
+   in float32 at capacity E_v (nothing dropped), rank 0's logits within
+   LM_CPU_TOL of the world-1 capacity path's with equal top-k ids; (ii)
+   phase 11b's cut: prefill and EP_DECODE_STEPS decode steps, each rank's
+   times, ``all_to_all`` seconds and bytes, dropped assignments against
+   13a's capacity path, peaks; logits finite, tokens inside the
+   vocabulary.  Each rank fails if it loaded ``jax`` or ``repro``.  The
+   phase launches neither kernel.
 
 There is no CPU fallback.
 
@@ -173,6 +193,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -293,6 +314,20 @@ REC_EQ_SEGMENTS = {
 }
 REC_EQ_SEQ, REC_EQ_STEPS, REC_CPU_TOL = 300, 3, 1e-4
 REC_FRAMES, REC_WHISPER_PROMPT = 1500, 64
+#: the expert-parallel MoE phase (13), phase 11's two decoders.  13a: NCCL,
+#: world 1, a (1, 1) mesh with the expert-parallel rules published, phase
+#: 11b's cut, capacity factor, prompts and steps, against the capacity path
+#: on the same weights; then EP_EQ_BATCH prompts of EP_EQ_PROMPT tokens and
+#: EP_EQ_STEPS decode steps, a batch whose decode step's capacity reaches
+#: the expert-parallel floor of 4, so the two paths' bins have one shape
+#: (at LM_BATCH sequences the capacity path's is 1 for deepseek and 3 for
+#: mixtral).  13b: EP_RANKS gloo ranks sharing the card on a (1, EP_RANKS)
+#: mesh, each holding only its experts' rows: (i) phase 11a's cut in
+#: float32 at capacity E_v against the world-1 capacity path within
+#: LM_CPU_TOL, (ii) phase 11b's cut, prefill and EP_DECODE_STEPS decode
+#: steps.  Children are bounded by EP_TIMEOUT seconds
+EP_EQ_BATCH, EP_EQ_PROMPT, EP_EQ_STEPS = 80, 16, 3
+EP_RANKS, EP_DECODE_STEPS, EP_TIMEOUT = 4, 15, 400
 #: the bucket histogram's shapes (phase 3b): the main path's 1M walks,
 #: padded to the tile, over its 16 blocks and two larger bucket counts
 HIST_N, HIST_NBS = 1_048_576, (16, 4096, 65536)
@@ -1962,14 +1997,15 @@ class _Routes:
         moe._route = self._route
 
 
-def _dropped(idx, cfg) -> int:
+def _dropped(idx, cfg, floor: int = 0) -> int:
     """Assignments past their expert's capacity: ``models/moe.py``'s rule,
-    ``int(T*K/E * cf) + 1`` over the virtual experts, on ``_route``'s ids."""
+    ``int(T*K/E * cf) + 1`` over the virtual experts (at least ``floor``:
+    4 on the expert-parallel path), on ``_route``'s ids."""
     import torch
 
     E = cfg.n_experts * cfg.moe_virtual_split
     T, K = idx.shape
-    cap = int((T * K / E) * cfg.capacity_factor) + 1
+    cap = max(int((T * K / E) * cfg.capacity_factor) + 1, floor)
     load = torch.bincount(idx.reshape(-1), minlength=E)
     return int((load - cap).clamp_min(0).sum())
 
@@ -2093,8 +2129,10 @@ def _moe_equivalence(arch, dev) -> dict:
     return out
 
 
-def _serve_lm(cfg, dev, *, tag: str, phase: str, prompt: int, bounds, describe: str = "") -> dict:
-    """Phases 11b and 12b for one config: made on the card, LM_BATCH prompts
+def _serve_lm(cfg, dev, *, tag: str, phase: str, prompt: int, bounds, describe: str = "",
+              params=None, keep: bool = False) -> dict:
+    """Phases 11b, 12b and 13a for one config: made on the card (or
+    ``params``, made by the caller), LM_BATCH prompts
     of ``prompt`` tokens (``_lm_batch``; the encoder-decoder's over
     REC_FRAMES frames) prefilled twice, then LM_NEW - 1 greedy decode steps
     timed with CUDA events, and the card's busy time under torch.profiler.
@@ -2104,7 +2142,8 @@ def _serve_lm(cfg, dev, *, tag: str, phase: str, prompt: int, bounds, describe: 
     ``decode_bytes``), a note on each for the log, the caller's own metrics
     (``extra``) and log ``lines``.  Fails unless the second prefill is
     bitwise equal to the first, the logits finite and the tokens inside the
-    vocabulary."""
+    vocabulary.  With ``keep``, the result also holds the first prefill's
+    logits and every sequence's tokens (``logits``, ``seqs``)."""
     import torch
 
     from repro_torch.models import model_caches, model_init
@@ -2115,17 +2154,20 @@ def _serve_lm(cfg, dev, *, tag: str, phase: str, prompt: int, bounds, describe: 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = model_init(0, cfg, device=dev)
+    given = params is not None
+    if not given:
+        params = model_init(0, cfg, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
     leaves = tree_leaves(params)
     n_params = sum(t.numel() for t in leaves)
     weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    made = ("the caller's" if given else f"made on the card in {init_s:.2f}s, "
+            f"torch.cuda.max_memory_allocated while made {init_peak:,} bytes")  # fmt: skip
     log(f"[{tag}] {phase} {cfg.name} {cfg.dtype} {cfg.n_layers} layers {list(cfg.layer_kinds)} "
-        f"d_model {cfg.d_model}{describe}: {n_params:,} parameters, {weight_bytes:,} bytes, made "
-        f"on the card in {init_s:.2f}s, torch.cuda.max_memory_allocated while made "
-        f"{init_peak:,} bytes")  # fmt: skip
+        f"d_model {cfg.d_model}{describe}: {n_params:,} parameters, {weight_bytes:,} bytes, "
+        f"{made}")  # fmt: skip
     torch.cuda.reset_peak_memory_stats()
     batch = _lm_batch(cfg, LM_BATCH, prompt, REC_FRAMES, dev)
     prefill = make_prefill_step(cfg)
@@ -2224,6 +2266,8 @@ def _serve_lm(cfg, dev, *, tag: str, phase: str, prompt: int, bounds, describe: 
         raise AssertionError(f"phase {phase} {cfg.name}: a token outside the vocabulary")
     if seqs.shape != (LM_BATCH, LM_NEW):
         raise AssertionError(f"phase {phase} {cfg.name}: {tuple(seqs.shape)} tokens")
+    if keep:
+        serve.update(logits=logits, seqs=seqs)
     del params, caches
     torch.cuda.empty_cache()
     return serve
@@ -2235,15 +2279,13 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
-def _moe_serve(arch, dev) -> dict:
-    """11b for one arch: bf16 at the published widths and capacity factor,
-    the depth cut to MOE_SERVE_SEGMENTS; phase 7b's prompts and steps."""
+def _moe_bounds(cfg, floor: int = 0):
+    """``_serve_lm``'s ``bounds`` for a MoE config (11b, 13a); drops are
+    counted under the capacity rule with ``floor`` (``_dropped``)."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.models.common import tree_leaves, tree_leaves_with_path
 
-    cfg = _cut(get_config(arch), MOE_SERVE_SEGMENTS[arch])
     active = cfg.active_param_count()
 
     def bounds(params, caches, prefill_ids, decode_ids):
@@ -2269,9 +2311,9 @@ def _moe_serve(arch, dev) -> dict:
             decode_routed_bound_ms=(routed_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
             cache_bytes_per_token_layer=cache_row // cfg.n_layers,
             assignments_prefill=sum(i.numel() for i in prefill_ids),
-            dropped_prefill=[_dropped(i, cfg) for i in prefill_ids],
+            dropped_prefill=[_dropped(i, cfg, floor) for i in prefill_ids],
             assignments_decode_step1=sum(i.numel() for i in decode_ids),
-            dropped_decode_step1=[_dropped(i, cfg) for i in decode_ids],
+            dropped_decode_step1=[_dropped(i, cfg, floor) for i in decode_ids],
         )  # fmt: skip
         lines = [
             f"decode bound, routed experts only: {extra['decode_routed_bound_ms']:.4f} ms "
@@ -2290,11 +2332,23 @@ def _moe_serve(arch, dev) -> dict:
             extra=extra, lines=lines,
         )  # fmt: skip
 
-    return _serve_lm(
-        cfg, dev, tag="lm-moe", phase="11b", prompt=LM_PROMPT, bounds=bounds,
-        describe=f", {cfg.n_experts} experts x split {cfg.moe_virtual_split}, top {cfg.top_k}, "
-        f"capacity_factor {cfg.capacity_factor}, {active:,} active parameters",
-    )  # fmt: skip
+    return bounds
+
+
+def _moe_describe(cfg) -> str:
+    return (f", {cfg.n_experts} experts x split {cfg.moe_virtual_split}, top {cfg.top_k}, "
+            f"capacity_factor {cfg.capacity_factor}, {cfg.active_param_count():,} active "
+            f"parameters")  # fmt: skip
+
+
+def _moe_serve(arch, dev) -> dict:
+    """11b for one arch: bf16 at the published widths and capacity factor,
+    the depth cut to MOE_SERVE_SEGMENTS; phase 7b's prompts and steps."""
+    from repro_torch.configs import get_config
+
+    cfg = _cut(get_config(arch), MOE_SERVE_SEGMENTS[arch])
+    return _serve_lm(cfg, dev, tag="lm-moe", phase="11b", prompt=LM_PROMPT,
+                     bounds=_moe_bounds(cfg), describe=_moe_describe(cfg))  # fmt: skip
 
 
 def phase_lm_moe(dev):
@@ -2492,6 +2546,458 @@ def phase_lm_recurrent(dev):
     return out
 
 
+def _ep_rules(mesh) -> dict:
+    """The rules that select ``models.moe``'s expert-parallel path (what
+    ``sharding.context.default_rules`` publishes on a wider ``model`` axis)."""
+    return {"moe_ep_axis": "model", "moe_dp_axes": ("data",), "mesh": mesh}
+
+
+class _Exchanges:
+    """Times every ``models.moe._exchange`` (one ``all_to_all_single``)
+    inside the ``with`` block, with the bytes each sends: CUDA events on the
+    card (NCCL), or the host clock around a synchronised call (gloo, whose
+    exchange copies through host memory)."""
+
+    def __init__(self, events: bool):
+        self.events, self.calls = events, []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self._fn = moe._exchange
+
+        def timed(bins, group, xdev):
+            nbytes = bins.numel() * bins.element_size()
+            if self.events:
+                start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                got = self._fn(bins, group, xdev)
+                stop.record()
+                self.calls.append(((start, stop), nbytes))
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = self._fn(bins, group, xdev)
+                torch.cuda.synchronize()
+                self.calls.append(((time.perf_counter() - t0) * 1e3, nbytes))
+            return got
+
+        moe._exchange = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._exchange = self._fn
+
+    def summary(self, n_moe: int) -> dict:
+        """Each exchange's ms and bytes, and their sums per MoE layer."""
+        import torch
+
+        torch.cuda.synchronize()
+        ms = [c[0].elapsed_time(c[1]) if self.events else c for c, _ in self.calls]
+        nbytes = [b for _, b in self.calls]
+        return dict(exchanges=len(ms), ms=ms, bytes=nbytes, ms_per_moe_layer=sum(ms) / n_moe,
+                    bytes_per_moe_layer=sum(nbytes) / n_moe)  # fmt: skip
+
+
+def _n_moe(cfg) -> int:
+    return sum(k.endswith("+moe") for k in cfg.layer_kinds)
+
+
+def _ep_decode_equal(cfg, params, rules, dev) -> dict:
+    """13a's equal-capacity check: EP_EQ_BATCH prompts prefilled, then
+    EP_EQ_STEPS greedy decode steps, on the capacity path and on the
+    expert-parallel one; every logit and token must be bitwise equal."""
+    import torch
+
+    from repro_torch.models import model_caches
+    from repro_torch.models.common import tree_map
+    from repro_torch.sharding.context import activation_rules
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    ev, kv = cfg.n_experts * cfg.moe_virtual_split, cfg.top_k * cfg.moe_virtual_split
+    dense_cap = int(EP_EQ_BATCH * kv / ev * cfg.capacity_factor) + 1
+    if dense_cap < 4:
+        raise AssertionError(f"phase 13a {cfg.name}: a decode step's capacity {dense_cap} < 4")
+    batch = _lm_batch(cfg, EP_EQ_BATCH, EP_EQ_PROMPT, 0, dev)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    seen = {}
+    for mode in ("dense", "ep"):
+        with activation_rules(rules if mode == "ep" else None):
+            logits, pcaches = prefill(params, batch)
+            caches = model_caches(cfg, EP_EQ_BATCH, EP_EQ_PROMPT + EP_EQ_STEPS, device=dev)
+            caches = tree_map(_lm_pad, pcaches, caches)
+            out = [logits]
+            tok = torch.argmax(logits[..., : cfg.vocab_size], -1).to(torch.int32)
+            for i in range(EP_EQ_STEPS):
+                step = {"token": tok[:, None], "cache_len": EP_EQ_PROMPT + i}
+                tok, logits, caches = decode(params, step, caches)
+                out += [logits, tok]
+        seen[mode] = out
+        del caches, pcaches
+    bitwise = all(torch.equal(a, b) for a, b in zip(seen["dense"], seen["ep"]))
+    return dict(batch=EP_EQ_BATCH, prompt=EP_EQ_PROMPT, steps=EP_EQ_STEPS,
+                decode_capacity=dense_cap, bitwise=bitwise)  # fmt: skip
+
+
+def _ep_world1(arch, dev, mesh) -> dict:
+    """13a for one arch: phase 11b's serving on the capacity path and with
+    the expert-parallel rules on a (1, 1) NCCL mesh, the same weights."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_caches, model_init
+    from repro_torch.models.common import tree_map
+    from repro_torch.sharding.context import activation_rules
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    cfg = _cut(get_config(arch), MOE_SERVE_SEGMENTS[arch])
+    rules = _ep_rules(mesh)
+    params = model_init(0, cfg, device=dev)
+    out = {}
+    for mode, floor in (("dense", 0), ("ep", 4)):
+        with activation_rules(rules if mode == "ep" else None):
+            out[mode] = _serve_lm(cfg, dev, tag="lm-ep", phase=f"13a {mode}", prompt=LM_PROMPT,
+                                  bounds=_moe_bounds(cfg, floor), describe=_moe_describe(cfg),
+                                  params=params, keep=True)  # fmt: skip
+    dense, ep = out["dense"], out["ep"]
+    out["prefill_bitwise"] = torch.equal(dense.pop("logits"), ep.pop("logits"))
+    same = (dense.pop("seqs") == ep.pop("seqs")).all(0).tolist()
+    out["decode_tokens_equal"] = same
+    out["first_step_differing"] = same.index(False) if False in same else None
+    # the exchanges of one prefill call and one decode step (CUDA events)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    batch = _lm_batch(cfg, LM_BATCH, LM_PROMPT, 0, dev)
+    with activation_rules(rules):
+        with _Exchanges(events=True) as ex:
+            logits, pcaches = prefill(params, batch)
+        out["exchange_prefill"] = ex.summary(_n_moe(cfg))
+        caches = tree_map(_lm_pad, pcaches, model_caches(cfg, LM_BATCH, LM_PROMPT + 1, device=dev))
+        tok = torch.argmax(logits[..., : cfg.vocab_size], -1).to(torch.int32)[:, None]
+        with _Exchanges(events=True) as ex:
+            decode(params, {"token": tok, "cache_len": LM_PROMPT}, caches)
+        out["exchange_decode"] = ex.summary(_n_moe(cfg))
+    # where a decode step's host time goes on each path (cProfile)
+    for mode in ("dense", "ep"):
+        with activation_rules(rules if mode == "ep" else None):
+            us, top = host_cost(lambda: decode(params, {"token": tok, "cache_len": LM_PROMPT},
+                                               caches), profile=True, calls=3)  # fmt: skip
+        out[f"host_decode_{mode}"] = dict(us=us, top=top[:8])
+    del logits, pcaches, caches
+    out["equal_capacity"] = _ep_decode_equal(cfg, params, rules, dev)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _keep_expert_rows(tree, lo: int, hi: int):
+    """``tree`` with every stacked expert weight ([groups, E_v, ...]) cut to
+    rows ``lo:hi`` (a copy, so the whole stack can be freed)."""
+    if isinstance(tree, dict):
+        return {k: ({n: w[:, lo:hi].clone() for n, w in v.items()} if k == "experts"
+                    else _keep_expert_rows(v, lo, hi)) for k, v in tree.items()}  # fmt: skip
+    if isinstance(tree, list):
+        return [_keep_expert_rows(v, lo, hi) for v in tree]
+    return tree
+
+
+def _ep_load(cfg, rank: int, dev, reference=None):
+    """13b: the ranks make the whole model in turn (``model_init`` draws
+    whole expert stacks: deepseek's cut peaks at 42.9 GB), each keeping only
+    its experts' rows and freeing the rest before the next starts; a rank
+    parks its part in host memory while the others make theirs, then all
+    bring theirs back.  ``reference(params)`` runs on the whole model
+    first.  Returns (params, reference's result, peak bytes, free bytes
+    on the card before this rank's turn)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import model_init
+    from repro_torch.models.common import tree_map
+
+    epr = cfg.n_experts * cfg.moe_virtual_split // EP_RANKS
+    params = ref = None
+    for turn in range(EP_RANKS):
+        if turn == rank:
+            free = torch.cuda.mem_get_info()[0]
+            torch.cuda.reset_peak_memory_stats()
+            whole = model_init(0, cfg, device=dev)
+            ref = reference(whole) if reference else None
+            params = _keep_expert_rows(whole, rank * epr, (rank + 1) * epr)
+            del whole
+            params = tree_map(lambda t: t.cpu(), params)
+            peak = torch.cuda.max_memory_allocated()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    params = tree_map(lambda t: t.to(dev), params)
+    torch.cuda.synchronize()
+    dist.barrier()
+    return params, ref, peak, free
+
+
+def ep_child(rank: int, tmp: str) -> int:
+    """One rank of phase 13b: joins the gloo group, then (i) the float32
+    check and (ii) serving for each MoE arch; writes its figures."""
+    import dataclasses
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.bucket_hist import bucket_hist_kernel
+    from repro_torch.kernels.pair_advance import fused_advance_pair
+    from repro_torch.models import model_caches, model_forward
+    from repro_torch.models.common import tree_map
+    from repro_torch.sharding.context import activation_rules
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    tmp = Path(tmp)
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'rdzv_ep'}", rank=rank,
+                            world_size=EP_RANKS, timeout=datetime.timedelta(seconds=EP_TIMEOUT))
+    out = {"rank": rank}
+    fused_advance_pair.launches = 0
+    bucket_hist_kernel.launches = 0
+    try:
+        mesh = init_device_mesh("cpu", (1, EP_RANKS), mesh_dim_names=("data", "model"))
+        rules = _ep_rules(mesh)
+        for arch in MOE_ARCHS:
+            res = out[arch] = {}
+            base = get_config(arch)
+            ev = base.n_experts * base.moe_virtual_split
+            # (i) float32, nothing dropped: rank 0's logits against the
+            # world-1 capacity path's on the whole model
+            cfg = _cut(base, MOE_EQ_SEGMENTS[arch], dtype=torch.float32, capacity_factor=float(ev))
+            batch = _lm_batch(cfg, LM_EQ_BATCH, MOE_EQ_SEQ, 0, dev)
+
+            def dense(whole):
+                with torch.no_grad(), _Routes() as routes:
+                    return model_forward(whole, batch, cfg)[0], routes.calls
+
+            t0 = time.perf_counter()
+            params, ref, res["check_init_peak"], res["check_free_before_init"] = _ep_load(
+                cfg, rank, dev, dense if rank == 0 else None)
+            res["check_load_s"] = time.perf_counter() - t0
+            with torch.no_grad(), activation_rules(rules), _Routes() as routes:
+                logits = model_forward(params, batch, cfg)[0]
+            if rank == 0:
+                want, want_ids = ref
+                sl = MOE_EQ_SEQ // EP_RANKS  # rank 0's positions: 0 .. sl-1 of each prompt
+                mine = [i.reshape(LM_EQ_BATCH, MOE_EQ_SEQ, -1)[:, :sl].reshape(-1, i.shape[1])
+                        for i in want_ids]  # fmt: skip
+                res["check"] = dict(
+                    _lm_logits_gap(logits, want, LM_CPU_TOL), capacity_factor=float(ev),
+                    topk_differ=sum(int((a != b).any(-1).sum()) for a, b in zip(routes.calls, mine)),
+                    routed_tokens=sum(int(i.shape[0]) for i in routes.calls),
+                )  # fmt: skip
+                del want, ref
+            del params, logits
+            torch.cuda.empty_cache()
+            dist.barrier()
+
+            # (ii) serving: bf16 at the published capacity factor
+            cfg = _cut(base, MOE_SERVE_SEGMENTS[arch])
+            t0 = time.perf_counter()
+            params, _, res["init_peak"], res["free_before_init"] = _ep_load(cfg, rank, dev)
+            res["load_s"] = time.perf_counter() - t0
+            t_serve = time.perf_counter()
+            res["weight_bytes"] = _nbytes(params)
+            torch.cuda.reset_peak_memory_stats()
+            batch = _lm_batch(cfg, LM_BATCH, LM_PROMPT, 0, dev)
+            prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+            with activation_rules(rules):
+                with _Routes() as routes:  # the first call also sets up cuBLAS
+                    prefill(params, batch)
+                res["dropped_prefill"] = [_dropped(ids, cfg, 4) for ids in routes.calls]
+                res["assignments_prefill"] = sum(i.numel() for i in routes.calls)
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with _Exchanges(events=False) as ex:
+                    logits, pcaches = prefill(params, batch)
+                torch.cuda.synchronize()
+                res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+                res["exchange_prefill"] = ex.summary(_n_moe(cfg))
+                caches = model_caches(cfg, LM_BATCH, LM_PROMPT + EP_DECODE_STEPS, device=dev)
+                caches = tree_map(_lm_pad, pcaches, caches)
+                del pcaches
+                tok = torch.argmax(logits[..., : cfg.vocab_size], -1).to(torch.int32)
+                step_ms = []
+                for i in range(EP_DECODE_STEPS):
+                    step = {"token": tok[:, None], "cache_len": LM_PROMPT + i}
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with (_Exchanges(events=False) if i == 0 else contextlib.nullcontext()) as ex, \
+                            (_Routes() if i == 0 else contextlib.nullcontext()) as routes:
+                        tok, step_logits, caches = decode(params, step, caches)
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t0) * 1e3)
+                    if i == 0:
+                        res["exchange_decode"] = ex.summary(_n_moe(cfg))
+                        res["dropped_decode_step1"] = [_dropped(ids, cfg, 4) for ids in routes.calls]
+            later = sorted(step_ms[1:])
+            res.update(serve_s=time.perf_counter() - t_serve, decode_ms_first=step_ms[0],
+                       decode_ms_median=later[len(later) // 2],
+                       decode_steps=EP_DECODE_STEPS, peak=torch.cuda.max_memory_allocated(),
+                       finite=bool(torch.isfinite(logits).all() and torch.isfinite(step_logits).all()),
+                       in_vocab=bool(((tok >= 0) & (tok < cfg.vocab_size)).all()))  # fmt: skip
+            del params, caches, logits, step_logits
+            torch.cuda.empty_cache()
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    out.update(launches=fused_advance_pair.launches, bucket_hist_launches=bucket_hist_kernel.launches)
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    if leaked:
+        raise AssertionError(f"rank {rank} loaded {leaked}")
+    (tmp / f"ep_rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def phase_lm_ep(dev, src: str):
+    """Phase 13: the expert-parallel MoE dispatch (13a NCCL at world 1 on
+    the card, 13b EP_RANKS gloo ranks sharing it)."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels.bucket_hist import bucket_hist_kernel
+    from repro_torch.kernels.pair_advance import fused_advance_pair
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as tmp:
+        tmp = Path(tmp)
+        dist.init_process_group("nccl", init_method=f"file://{tmp / 'rdzv'}", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=EP_TIMEOUT))
+        try:
+            mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+            torch.cuda.synchronize()
+            fused_advance_pair.launches = 0
+            bucket_hist_kernel.launches = 0
+            out["13a"] = {arch: _ep_world1(arch, dev, mesh) for arch in MOE_ARCHS}
+            out["13a"]["launches"] = fused_advance_pair.launches
+            out["13a"]["bucket_hist_launches"] = bucket_hist_kernel.launches
+        finally:
+            dist.destroy_process_group()
+        for arch in MOE_ARCHS:
+            a = out["13a"][arch]
+            for mode in ("dense", "ep"):
+                log(f"[lm-ep] 13a {arch} {mode}: prefill {a[mode]['prefill_ms']:.3f} ms (bound "
+                    f"{a[mode]['prefill_bound_ms']:.3f}), decode median "
+                    f"{a[mode]['decode_ms_median']:.3f} ms (bound {a[mode]['decode_bound_ms']:.4f}; "
+                    f"routed only {a[mode]['decode_routed_bound_ms']:.4f}); kernels per call "
+                    f"{a[mode]['device_busy']['prefill']['kernels']:.0f} / "
+                    f"{a[mode]['device_busy']['decode']['kernels']:.0f}; dropped "
+                    f"{a[mode]['dropped_prefill']} / {a[mode]['dropped_decode_step1']}")  # fmt: skip
+            for mode in ("dense", "ep"):
+                h = a[f"host_decode_{mode}"]
+                log(f"[lm-ep] 13a {arch} {mode} decode step on the host: {h['us'] / 1e3:.3f} ms "
+                    f"(least of three loops of 3); cProfile top by own time (us per step) "
+                    f"{json.dumps([[n, round(t, 1)] for n, t in h['top']])}")  # fmt: skip
+            for key in ("exchange_prefill", "exchange_decode"):
+                e = a[key]
+                log(f"[lm-ep] 13a {arch} {key}: {e['exchanges']} all_to_all, "
+                    f"{e['ms_per_moe_layer']:.4f} ms and {e['bytes_per_moe_layer']:,.0f} "
+                    f"send-buffer bytes per MoE layer (CUDA events); each "
+                    f"{[round(m, 4) for m in e['ms']]} ms")  # fmt: skip
+            log(f"[lm-ep] 13a {arch}: prefill logits bitwise {a['prefill_bitwise']}; decode "
+                f"tokens equal at {sum(a['decode_tokens_equal'])} of {LM_NEW} steps (first "
+                f"differing {a['first_step_differing']}); equal capacity "
+                f"{json.dumps(a['equal_capacity'])}")  # fmt: skip
+            if not a["prefill_bitwise"] or not a["equal_capacity"]["bitwise"]:
+                raise AssertionError(f"phase 13a {arch}: the expert-parallel path at world 1 "
+                                     f"differs from the capacity path")  # fmt: skip
+        torch.cuda.empty_cache()
+        log(f"[lm-ep] 13b: free on the card before the ranks start "
+            f"{torch.cuda.mem_get_info()[0]:,} bytes (this process reserves "
+            f"{torch.cuda.memory_reserved():,})")  # fmt: skip
+
+        # 13b: EP_RANKS gloo ranks, each a process on this card
+        t0 = time.perf_counter()
+        procs = []
+        try:
+            for r in range(EP_RANKS):
+                with open(tmp / f"ep_rank{r}.log", "w") as logf:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()), "--src", src,
+                         "--ep-child", str(r), str(tmp)],
+                        stdout=logf, stderr=subprocess.STDOUT,
+                        # four processes share the card: no segment is held half used
+                        env=dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"),
+                    ))  # fmt: skip
+            deadline = time.perf_counter() + EP_TIMEOUT
+            for p in procs:
+                p.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"phase 13b: a rank ran past {EP_TIMEOUT} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            tails = {r: (tmp / f"ep_rank{r}.log").read_text()[-3000:] for r in failed}
+            raise AssertionError(f"phase 13b: ranks {failed} failed: {tails}")
+        ranks = [json.loads((tmp / f"ep_rank{r}.json").read_text()) for r in range(EP_RANKS)]
+    out["13b"] = dict(ranks=ranks, wall_s=time.perf_counter() - t0,
+                      launches=sum(r["launches"] for r in ranks),
+                      bucket_hist_launches=sum(r["bucket_hist_launches"] for r in ranks))
+    for arch in MOE_ARCHS:
+        check = ranks[0][arch]["check"]
+        log(f"[lm-ep] 13b(i) {arch} float32, capacity_factor {check['capacity_factor']}: rank 0 "
+            f"vs the world-1 capacity path {json.dumps(check)}")  # fmt: skip
+        if not check["ok"] or check["topk_differ"]:
+            raise AssertionError(f"phase 13b(i) {arch}: {check}")
+        dense = out["13a"][arch]["dense"]
+        for r in ranks:
+            a = r[arch]
+            log(f"[lm-ep] 13b(ii) {arch} rank {r['rank']}: prefill {a['prefill_ms']:.1f} ms, "
+                f"decode first {a['decode_ms_first']:.1f} ms, median {a['decode_ms_median']:.1f} "
+                f"ms ({EP_DECODE_STEPS} steps); all_to_all per MoE layer (send buffers, "
+                f"{EP_RANKS - 1}/{EP_RANKS} of them to other ranks): prefill "
+                f"{a['exchange_prefill']['ms_per_moe_layer'] / 1e3:.4f} s and "
+                f"{a['exchange_prefill']['bytes_per_moe_layer']:,.0f} bytes, decode "
+                f"{a['exchange_decode']['ms_per_moe_layer'] / 1e3:.4f} s and "
+                f"{a['exchange_decode']['bytes_per_moe_layer']:,.0f} bytes; dropped at prefill "
+                f"{a['dropped_prefill']} of {a['assignments_prefill']:,}; peaks: check init "
+                f"{a['check_init_peak']:,}, init {a['init_peak']:,}, serving {a['peak']:,} bytes "
+                f"({a['weight_bytes']:,} weight bytes held; free on the card before its turns "
+                f"{a['check_free_before_init']:,} and {a['free_before_init']:,}); seconds: "
+                f"loads {a['check_load_s']:.1f} and {a['load_s']:.1f}, serving "
+                f"{a['serve_s']:.1f}")  # fmt: skip
+            if not (a["finite"] and a["in_vocab"]):
+                raise AssertionError(f"phase 13b(ii) {arch} rank {r['rank']}: {a}")
+        # prefill: each rank routes its quarter of the positions; decode
+        # (one position): every rank routes the same LM_BATCH tokens
+        drops = [sum(x) for x in zip(*(r[arch]["dropped_prefill"] for r in ranks))]
+        drops1 = ranks[0][arch]["dropped_decode_step1"]
+        log(f"[lm-ep] 13b(ii) {arch} dropped assignments per MoE layer: prefill, summed over "
+            f"the ranks, {drops} (world-1 capacity path {dense['dropped_prefill']}); first "
+            f"decode step, where every rank routes the same {LM_BATCH} tokens, {drops1} "
+            f"(world-1 {dense['dropped_decode_step1']})")  # fmt: skip
+        out["13b"][arch] = dict(dropped_prefill=drops, dropped_decode_step1=drops1)
+    log(f"[lm-ep] card: {card_line()}")
+    log(f"[lm-ep] phase 13: {time.perf_counter() - t_phase:.1f}s; 13b {EP_RANKS} ranks "
+        f"{out['13b']['wall_s']:.1f}s; kernel launches: 13a {out['13a']['launches']} / "
+        f"{out['13a']['bucket_hist_launches']}, 13b {out['13b']['launches']} / "
+        f"{out['13b']['bucket_hist_launches']}")  # fmt: skip
+    return out
+
+
 def dist_child(rank: int, tmp: str) -> int:
     """One rank of phase 10b: joins the gloo group, runs its block of the
     DIST_VERTICES graph through the kernel and writes the global arrays."""
@@ -2532,6 +3038,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="kernels",
                     help="--kernels-only, --hist-sweep: the rows' file, OUT.json")  # fmt: skip
     ap.add_argument("--dist-child", nargs=2, metavar=("RANK", "DIR"), help=argparse.SUPPRESS)
+    ap.add_argument("--ep-child", nargs=2, metavar=("RANK", "DIR"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script has no CPU fallback", file=sys.stderr)
@@ -2539,6 +3046,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(args.src).resolve() / "src"))
     if args.dist_child:
         return dist_child(int(args.dist_child[0]), args.dist_child[1])
+    if args.ep_child:
+        return ep_child(int(args.ep_child[0]), args.ep_child[1])
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -2596,23 +3105,26 @@ def main(argv=None) -> int:
     distributed = phase_distributed(dev, oracle_counts, args.src)
     lm_moe = phase_lm_moe(dev)
     lm_rec = phase_lm_recurrent(dev)
+    lm_ep = phase_lm_ep(dev, args.src)
     # ``launches`` counts the main paths only: the walk launcher, the
     # full-size hot-set server, LM serving and LM training (which run
     # neither kernel), the train launcher (its corpus's advances), the
-    # distributed engine at full size (10a), MoE / MLA serving (11b) and
-    # SSD / RG-LRU / encoder-decoder serving (12b), neither kernel; the LRU
-    # server, the launcher
-    # at its small defaults and the 4-rank gloo run are listed beside them
-    # in ``launches_by_path``
+    # distributed engine at full size (10a), MoE / MLA serving (11b), SSD /
+    # RG-LRU / encoder-decoder serving (12b) and expert-parallel MoE serving
+    # (13a), neither kernel; the LRU server, the launcher at its small
+    # defaults and the 4-rank gloo runs (10b, 13b) are listed beside them in
+    # ``launches_by_path``
     def by_path(key):
         main = {"walk biblock+oracle": main_infos[0][key], "serve hot-set": serving["6b"]["hot"][key],
                 "lm serve": lm["7b"][key], "lm train": lm_train["8b"][key],
                 "lm train launcher": harness["9b"][key],
                 "distributed": distributed["10a"]["cuda"][key],
                 "lm serve moe/mla": lm_moe["11b"][key],
-                "lm serve ssm/rglru/encdec": lm_rec["12b"][key]}  # fmt: skip
+                "lm serve ssm/rglru/encdec": lm_rec["12b"][key],
+                "lm serve moe ep": lm_ep["13a"][key]}  # fmt: skip
         other = {"serve lru": serving["6b"]["lru"][key], "serve launcher": serving["6c"][key],
-                 f"distributed {DIST_RANKS} ranks (gloo)": distributed["10b"][key]}  # fmt: skip
+                 f"distributed {DIST_RANKS} ranks (gloo)": distributed["10b"][key],
+                 f"moe ep {EP_RANKS} ranks (gloo)": lm_ep["13b"][key]}  # fmt: skip
         return sum(main.values()), {**main, **other}
 
     pair_launches, pair_by_path = by_path("launches")
@@ -2645,7 +3157,7 @@ def main(argv=None) -> int:
         card=card, build_s=build_s, variants=rows, bucket_hist=hist, kernel_tier=tier,
         whole_run=whole, other_engines=engines, main_runs=phases, serve=serving, lm=lm,
         lm_train=lm_train, lm_harness=harness, distributed=distributed, lm_moe=lm_moe,
-        lm_recurrent=lm_rec, total_s=elapsed(),
+        lm_recurrent=lm_rec, lm_ep=lm_ep, total_s=elapsed(),
     ), indent=1))  # fmt: skip
     log(f"[done] {elapsed():.1f}s")
     log(card)

@@ -9,8 +9,8 @@ LayerNorm with a bias, and logits against the tied embedding.
 The layers are stacked on a leading axis, as the JAX module's
 ``jax.vmap`` and ``lax.scan`` stack them, and walked with a Python loop.
 The JAX scans run without remat, and so do these loops; the JAX module's
-``constrain`` (the identity on one device) is dropped, as in
-``transformer.py``.
+``constrain`` calls are left out, as in ``transformer.py``:
+``repro_torch.sharding.context.constrain`` is the identity on plain tensors.
 
 Decode attends to the encoder K/V computed once at prefill, which the
 caches hold, plus a growing self-attention cache written in place by

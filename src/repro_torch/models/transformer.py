@@ -9,8 +9,9 @@ The parameter and cache trees have the JAX package's layout: a segment's
 tensors are stacked on a leading group axis (as ``jax.vmap`` and
 ``lax.scan`` stack them), and the layers are walked with a Python loop over
 that axis.  The JAX module pins activations' sharding with
-``sharding.context.constrain``; on one device that is the identity, so the
-port drops those calls.
+``sharding.context.constrain``; its counterpart,
+``repro_torch.sharding.context.constrain``, is the identity on the plain
+tensors these layers take, so the port leaves those calls out.
 
 The same assembly serves:
   * ``forward``      — teacher-forced logits (VLM prefix included); under

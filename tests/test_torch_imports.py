@@ -5,10 +5,14 @@
   builds nothing.
 * The port's ``core``, ``engines``, ``kernels``, ``core.engine``, ``serve``,
   ``core.sampling``, ``models``, ``configs``, ``train``, ``optim``,
-  ``data``, ``checkpoint``, ``runtime`` and ``core.distributed`` export the
-  JAX package's names, but for the documented differences; the last six
+  ``data``, ``checkpoint``, ``runtime``, ``core.distributed``, ``sharding``
+  (and its ``context`` and ``rules``) and ``launch.mesh`` export the
+  JAX package's names, but for the documented differences; ``train``,
+  ``optim``, ``data``, ``checkpoint``, ``runtime`` and ``core.distributed``
   take the JAX package's parameters (``core.distributed`` adds only the
-  port's ``device`` and ``advance_impl`` keywords); ``models.moe``,
+  port's ``device`` and ``advance_impl`` keywords), the ``sharding``
+  modules too, and ``launch.mesh`` but for its added ``device_type``;
+  ``models.moe``,
   ``models.mla``, ``models.ssm``, ``models.rglru`` and ``models.encdec``
   too, but for the init functions' generator.
 * An engine built with the default device raises a clear error on a host
@@ -90,6 +94,10 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
         "repro_torch.runtime",
         "repro_torch.runtime.fault",
         "repro_torch.launch.train",
+        "repro_torch.launch.mesh",
+        "repro_torch.sharding",
+        "repro_torch.sharding.context",
+        "repro_torch.sharding.rules",
     ):
         assert m in res["modules"]
     assert list(tmp_path.iterdir()) == []  # importing builds no kernel
@@ -169,6 +177,10 @@ _EXPORT_DIFFS = [
     ("checkpoint", set(), set()),
     ("runtime", set(), set()),
     ("core.distributed", set(), set()),
+    ("sharding", set(), set()),
+    ("sharding.context", set(), set()),
+    ("sharding.rules", set(), set()),
+    ("launch.mesh", set(), set()),
 ]
 
 _EXPORTS_PROBE = r"""
@@ -329,6 +341,26 @@ def test_distributed_signatures_match_jax_but_for_device_and_advance():
     assert port_params == jax_params + [
         ["device", "KEYWORD_ONLY", "'cuda'"], ["advance_impl", "KEYWORD_ONLY", "'cuda'"],
     ]  # fmt: skip
+
+
+def test_sharding_and_mesh_signatures_match_jax_but_for_the_device_type():
+    """``sharding``, ``sharding.context``, ``sharding.rules`` and
+    ``launch.mesh`` export the JAX modules' names, each with the JAX
+    function's parameters; ``make_production_mesh`` adds only
+    ``init_device_mesh``'s ``device_type``, last."""
+    import importlib
+
+    res = _model_signatures(["sharding", "sharding.context", "sharding.rules", "launch.mesh"])
+    assert sorted(res["sharding"]) == [
+        "batch_specs", "cache_specs", "dp_axes", "named", "param_specs",
+    ]  # fmt: skip
+    assert sorted(res["sharding.context"]) == ["activation_rules", "constrain", "default_rules"]
+    for pkg, names in res.items():
+        assert sorted(importlib.import_module("repro_torch." + pkg).__all__) == sorted(names)
+        for name, (jax_params, port_params) in names.items():
+            if name == "make_production_mesh":
+                jax_params = jax_params + [["device_type", "KEYWORD_ONLY", "'cuda'"]]
+            assert port_params == jax_params, f"{pkg}.{name}"
 
 
 def test_core_reexports_the_storage_layer_and_the_engine_shim():
