@@ -169,7 +169,18 @@ Phases (each raises on failure, so the script exits non-zero):
    times, ``all_to_all`` seconds and bytes, dropped assignments against
    13a's capacity path, peaks; logits finite, tokens inside the
    vocabulary.  Each rank fails if it loaded ``jax`` or ``repro``.  The
-   phase launches neither kernel.
+   phase launches neither kernel;
+14. the multi-pod dry run — ``repro_torch.launch.dryrun``: (14a) NCCL,
+   world size 1, a ``(1, 1)`` ``DeviceMesh``: the dry run's estimate
+   (fake DTensors, nothing allocated) of llama3.2-1b's bf16 prefill of
+   phase 7b's 8 x 512 prompts and of phase 8b's train step (8 x 512 tokens
+   in the config's 2 microbatches), then the same steps for real on the
+   card: the step's peak (``max_memory_allocated`` less what was allocated
+   before it) within DRYRUN_PEAK_TOL of the estimate's ``temp``, and its
+   FLOPs (``FlopCounterMode``) within DRYRUN_FLOPS_TOL of the estimate's;
+   (14b) ``run_cell`` at full width on the fake (16, 16) mesh (256 fake
+   ranks) for DRYRUN_CELLS, each record printed; a cell that fails fails
+   the phase.  The phase launches neither kernel.
 
 There is no CPU fallback.
 
@@ -328,6 +339,13 @@ REC_FRAMES, REC_WHISPER_PROMPT = 1500, 64
 #: steps.  Children are bounded by EP_TIMEOUT seconds
 EP_EQ_BATCH, EP_EQ_PROMPT, EP_EQ_STEPS = 80, 16, 3
 EP_RANKS, EP_DECODE_STEPS, EP_TIMEOUT = 4, 15, 400
+#: the dry-run phase (14): 14a's bounds on the estimate against the real
+#: step (peak: |measured - estimate| / measured; FLOPs likewise), 14b's
+#: full-width cells (one through the expert-parallel dispatch, one at
+#: batch 1 over 524,288 positions)
+DRYRUN_PEAK_TOL, DRYRUN_FLOPS_TOL, DRYRUN_TIMEOUT = 0.10, 0.01, 300
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("deepseek-v2-236b", "decode_32k"),
+                ("mamba2-2.7b", "long_500k"))  # fmt: skip
 #: the bucket histogram's shapes (phase 3b): the main path's 1M walks,
 #: padded to the tile, over its 16 blocks and two larger bucket counts
 HIST_N, HIST_NBS = 1_048_576, (16, 4096, 65536)
@@ -3025,6 +3043,113 @@ def dist_child(rank: int, tmp: str) -> int:
     return 0
 
 
+def _measured(run):
+    """``run()`` on the card: its result, the peak of what it allocated
+    beyond what was allocated before it, and its FLOPs (``FlopCounterMode``)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as counter:
+        result = run()
+    torch.cuda.synchronize()
+    return result, torch.cuda.max_memory_allocated() - before, counter.get_total_flops()
+
+
+def phase_dryrun(dev):
+    """Phase 14: the multi-pod dry run (14a its estimate against the real
+    step on the card; 14b full-width cells on the fake (16, 16) mesh)."""
+    import dataclasses
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.kernels.bucket_hist import bucket_hist_kernel
+    from repro_torch.kernels.pair_advance import fused_advance_pair
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model_init
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.train import make_prefill_step, make_train_step
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    memory_total = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.total", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]  # fmt: skip
+    log(f"[dryrun] the card's memory: {memory_total} | {card}")
+    cfg = get_config(LM_ARCH)
+    specs = {"prefill": ShapeSpec("7b prefill", LM_PROMPT, LM_BATCH, "prefill"),
+             "train": ShapeSpec("8b train", TRAIN_SEQ, TRAIN_BATCH, "train")}  # fmt: skip
+    out = {"14a": {}, "14b": {}, "memory_total": memory_total}
+    # 14a: the estimate on a (1, 1) mesh, then the same steps for real
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{Path(tmp) / 'rdzv'}", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=DRYRUN_TIMEOUT))
+        try:
+            mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+            estimates = {kind: dryrun._estimate(cfg, spec, mesh, device_type="cuda")
+                         for kind, spec in specs.items()}  # fmt: skip
+        finally:
+            dist.destroy_process_group()
+    fused_advance_pair.launches = 0
+    bucket_hist_kernel.launches = 0
+    params = model_init(0, cfg, device=dev)
+    batch = {k: v.to(torch.int32) for k, v in _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, dev).items()}
+    prompt = {"tokens": batch["tokens"][:LM_BATCH, :LM_PROMPT]}
+    (logits, caches), peak, flops = _measured(lambda: make_prefill_step(cfg)(params, prompt))
+    measured = {"prefill": (peak, flops, bool(torch.isfinite(logits.float()).all()))}
+    del logits, caches
+    state = adamw_init(params)
+    step = make_train_step(cfg, OptConfig(), microbatches=cfg.train_microbatches)
+    (params, state, metrics), peak, flops = _measured(lambda: step(params, state, batch))
+    measured["train"] = (peak, flops, bool(torch.isfinite(metrics["loss"]).all()))
+    out["14a"]["launches"] = fused_advance_pair.launches
+    out["14a"]["bucket_hist_launches"] = bucket_hist_kernel.launches
+    del params, state, metrics
+    torch.cuda.empty_cache()
+    for kind, est in estimates.items():
+        peak, flops, finite = measured[kind]
+        row = dict(
+            shape=dataclasses.asdict(specs[kind]), microbatches=est.get("microbatches"),
+            predicted_peak=est["bytes_per_device"]["temp"], measured_peak=peak,
+            peak_gap=abs(peak - est["bytes_per_device"]["temp"]) / peak,
+            predicted_flops=est["cost_analysis"]["flops"], counted_flops=flops,
+            flops_gap=abs(flops - est["cost_analysis"]["flops"]) / flops,
+            arguments=est["bytes_per_device"]["arguments"], trace_s=est["trace_s"],
+            finite=finite, card=card,
+        )  # fmt: skip
+        out["14a"][kind] = row
+        log(f"[dryrun] 14a {cfg.name} {kind} {LM_BATCH} x {LM_PROMPT}: peak predicted "
+            f"{row['predicted_peak']:,} B, measured {peak:,} B (gap {row['peak_gap']:.4f}); "
+            f"FLOPs predicted {row['predicted_flops']:,}, counted {flops:,} (gap "
+            f"{row['flops_gap']:.6f}); estimate traced in {est['trace_s']} s | {card}")  # fmt: skip
+        if row["peak_gap"] > DRYRUN_PEAK_TOL or row["flops_gap"] > DRYRUN_FLOPS_TOL or not finite:
+            raise AssertionError(f"phase 14a {kind}: estimate off the card's step: {row}")
+    # 14b: full-width cells on the fake (16, 16) mesh
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, device_type="cuda")
+        out["14b"][f"{arch}|{shape}"] = rec
+        log(f"[dryrun] 14b {json.dumps(rec)}")
+        if not rec["ok"]:
+            raise AssertionError(f"phase 14b: {arch} {shape} failed: {rec}")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    ep = out["14b"]["deepseek-v2-236b|decode_32k"]["collectives"]["all-to-all"]
+    if not ep:
+        raise AssertionError("phase 14b: deepseek-v2-236b decode_32k counted no all-to-all")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[dryrun] phase 14 in {out['phase_s']:.1f}s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3106,14 +3231,15 @@ def main(argv=None) -> int:
     lm_moe = phase_lm_moe(dev)
     lm_rec = phase_lm_recurrent(dev)
     lm_ep = phase_lm_ep(dev, args.src)
+    dryrun = phase_dryrun(dev)
     # ``launches`` counts the main paths only: the walk launcher, the
     # full-size hot-set server, LM serving and LM training (which run
     # neither kernel), the train launcher (its corpus's advances), the
     # distributed engine at full size (10a), MoE / MLA serving (11b), SSD /
-    # RG-LRU / encoder-decoder serving (12b) and expert-parallel MoE serving
-    # (13a), neither kernel; the LRU server, the launcher at its small
-    # defaults and the 4-rank gloo runs (10b, 13b) are listed beside them in
-    # ``launches_by_path``
+    # RG-LRU / encoder-decoder serving (12b), expert-parallel MoE serving
+    # (13a) and the dry run's real steps (14a), neither kernel; the LRU
+    # server, the launcher at its small defaults and the 4-rank gloo runs
+    # (10b, 13b) are listed beside them in ``launches_by_path``
     def by_path(key):
         main = {"walk biblock+oracle": main_infos[0][key], "serve hot-set": serving["6b"]["hot"][key],
                 "lm serve": lm["7b"][key], "lm train": lm_train["8b"][key],
@@ -3121,7 +3247,8 @@ def main(argv=None) -> int:
                 "distributed": distributed["10a"]["cuda"][key],
                 "lm serve moe/mla": lm_moe["11b"][key],
                 "lm serve ssm/rglru/encdec": lm_rec["12b"][key],
-                "lm serve moe ep": lm_ep["13a"][key]}  # fmt: skip
+                "lm serve moe ep": lm_ep["13a"][key],
+                "lm dry-run check": dryrun["14a"][key]}  # fmt: skip
         other = {"serve lru": serving["6b"]["lru"][key], "serve launcher": serving["6c"][key],
                  f"distributed {DIST_RANKS} ranks (gloo)": distributed["10b"][key],
                  f"moe ep {EP_RANKS} ranks (gloo)": lm_ep["13b"][key]}  # fmt: skip
@@ -3157,7 +3284,7 @@ def main(argv=None) -> int:
         card=card, build_s=build_s, variants=rows, bucket_hist=hist, kernel_tier=tier,
         whole_run=whole, other_engines=engines, main_runs=phases, serve=serving, lm=lm,
         lm_train=lm_train, lm_harness=harness, distributed=distributed, lm_moe=lm_moe,
-        lm_recurrent=lm_rec, lm_ep=lm_ep, total_s=elapsed(),
+        lm_recurrent=lm_rec, lm_ep=lm_ep, dryrun=dryrun, total_s=elapsed(),
     ), indent=1))  # fmt: skip
     log(f"[done] {elapsed():.1f}s")
     log(card)

@@ -28,7 +28,11 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, apply_rope, dense_init, rope, weak_scalar
+from repro_torch.sharding.context import (
+    from_shards, is_dtensor, local_shard, shard_offset, splittable,
+)
+
+from .common import ModelConfig, apply_rope, dense_init, linear, rope, weak_scalar
 
 __all__ = [
     "attn_init",
@@ -78,8 +82,44 @@ def chunked_attention(
     q_offset: int = 0, q_chunk: int = 512, kv_chunk: int = 1024,
 ):  # fmt: skip
     """q: [B, Sq, H, D]; k, v: [B, Sk, KVH, D] with H % KVH == 0."""
+    if is_dtensor(q):
+        return _sharded_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                  q_chunk=q_chunk, kv_chunk=kv_chunk)  # fmt: skip
     q, k, v, grid = _pad(q, k, v, causal, window, q_offset, q_chunk, kv_chunk)
     return _Flash.apply(q, k, v, grid)[:, : grid.Sq]
+
+
+def _sharded_attention(q, k, v, **kw):
+    """:func:`chunked_attention` of DTensors, on each rank's shard.  Along
+    each mesh dim q keeps its split of the batch, else takes a split of
+    its sequence (where it divides; a slice, no exchange), else of its
+    heads (where the KV heads split alike); k and v take q's batch and head
+    splits and hold the whole sequence, their gradients summed over the
+    ranks that split q's sequence.  The shard's first row is its
+    ``q_offset``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    B, Sq, H = q.shape[:3]
+    qp, kp, kgrad = [], [], []
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        if type(p) is Shard and p.dim == 0:
+            d = 0
+        elif Sq % n == 0 and Sq > 1:
+            d = 1
+        elif H % n == 0 and k.shape[2] % n == 0:
+            d = 2
+        else:
+            d = None
+        qp.append(Replicate() if d is None else Shard(d))
+        kp.append(Shard(d) if d in (0, 2) else Replicate())
+        kgrad.append(Partial() if d == 1 else kp[-1])
+    out = chunked_attention(
+        local_shard(q, qp), local_shard(k, kp, kgrad), local_shard(v, kp, kgrad),
+        **dict(kw, q_offset=kw["q_offset"] + shard_offset(Sq, mesh, qp, 1)),
+    )  # fmt: skip
+    return from_shards(out, mesh, qp, q.shape)
 
 
 def _pad(q, k, v, causal, window, q_offset, q_chunk, kv_chunk):
@@ -256,18 +296,18 @@ def attention_apply(
     """Full-sequence attention (train / prefill).  Returns (out, (k, v))."""
     B, S, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ params["wq"]
+    q = linear(x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
-    q = q.reshape(B, S, h, hd)
+    q = splittable(q, -1, h).reshape(B, S, h, hd)
     if kv_override is None:
-        k = x @ params["wk"]
-        v = x @ params["wv"]
+        k = linear(x, params["wk"])
+        v = linear(x, params["wv"])
         if "bk" in params:
             k = k + params["bk"]
             v = v + params["bv"]
-        k = k.reshape(B, -1, kvh, hd)
-        v = v.reshape(B, -1, kvh, hd)
+        k = splittable(k, -1, kvh).reshape(B, -1, kvh, hd)
+        v = splittable(v, -1, kvh).reshape(B, -1, kvh, hd)
     else:
         k, v = kv_override  # cross attention: precomputed from encoder
     if positions is None:
@@ -280,7 +320,7 @@ def attention_apply(
         k = apply_rope(k, ksin, kcos)
     out = chunked_attention(q, k, v, causal=causal, window=window)
     out = out.reshape(B, S, h * hd)
-    return out @ params["wo"], (k, v)
+    return linear(out, params["wo"]), (k, v)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *, window=None):
@@ -308,17 +348,17 @@ def attention_decode(
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = h // kvh
     L = cache["k"].shape[1]
-    q = x @ params["wq"]
+    q = linear(x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
-    q = q.reshape(B, 1, kvh, g, hd)
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    q = splittable(q, -1, kvh).reshape(B, 1, kvh, g, hd)
+    k = linear(x, params["wk"])
+    v = linear(x, params["wv"])
     if "bk" in params:
         k = k + params["bk"]
         v = v + params["bv"]
-    k = k.reshape(B, 1, kvh, hd)
-    v = v.reshape(B, 1, kvh, hd)
+    k = splittable(k, -1, kvh).reshape(B, 1, kvh, hd)
+    v = splittable(v, -1, kvh).reshape(B, 1, kvh, hd)
     pos = int(cache_len)
     if not cfg.learned_pos:
         sin, cos = rope(torch.full((1, 1), pos, device=x.device), hd, cfg.rope_theta)
@@ -326,15 +366,38 @@ def attention_decode(
         k = apply_rope(k, sin, cos)
     slot = (pos % L) if window else min(pos, L - 1)
     ck, cv = cache["k"], cache["v"]
+    if is_dtensor(ck):
+        out = _sharded_decode(q, k, v, ck, cv, slot, pos, window)
+    else:
+        out = _decode(q, k, v, ck, cv, slot, pos, window)
+    out = out.reshape(B, 1, h * hd)
+    return linear(out, params["wo"]), cache
+
+
+def _decode(q, k, v, ck, cv, slot: int, pos: int, window):
+    """The new k, v written at ``slot`` of the cache ck, cv, and q's
+    attention over it: [B, 1, KVH, G, HD] in q's dtype."""
+    L, hd = ck.shape[1], ck.shape[3]
     ck[:, slot] = k[:, 0]
     cv[:, slot] = v[:, 0]
     s = torch.einsum(
         "bqhgd,bkhd->bhgqk", (q * weak_scalar(1.0 / math.sqrt(hd), q)).float(), ck.float()
     )
-    idx = torch.arange(L, device=x.device)
+    idx = torch.arange(L, device=q.device)
     valid = idx <= slot if window is None else ((idx <= slot) | (pos >= L))
     s = torch.where(valid, s, -1e30)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(cv.dtype).float(), cv.float()).to(x.dtype)
-    out = out.reshape(B, 1, h * hd)
-    return out @ params["wo"], cache
+    return torch.einsum("bhgqk,bkhd->bqhgd", p.to(cv.dtype).float(), cv.float()).to(q.dtype)
+
+
+def _sharded_decode(q, k, v, ck, cv, slot: int, pos: int, window):
+    """:func:`_decode` of DTensors, on each rank's shard: q, k and v take
+    the cache's split of the batch and the KV heads, and each rank writes
+    and reads its shard of the cache (the cache's positions are whole)."""
+    places = list(ck.placements)
+    if any(p.is_shard(1) or p.is_shard(3) or p.is_partial() for p in places):
+        raise NotImplementedError(f"a KV cache placed as {places}: decode takes the batch "
+                                  f"and the KV heads split, the positions whole")  # fmt: skip
+    out = _decode(local_shard(q, places), local_shard(k, places), local_shard(v, places),
+                  ck.to_local(), cv.to_local(), slot, pos, window)  # fmt: skip
+    return from_shards(out, ck.device_mesh, places, q.shape)

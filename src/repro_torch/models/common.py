@@ -195,6 +195,26 @@ def tree_unflatten(tree, leaves):
 # ---------------------------------------------------------------------------
 
 
+def linear(x, w):
+    """``x @ w`` for activations x [..., D] and a weight w [D, E].  Of
+    DTensors it is ``sharding.context.sharded_linear``, a product on each
+    rank's shards."""
+    if type(x) is torch.Tensor and type(w) is torch.Tensor:
+        return x @ w
+    from repro_torch.sharding.context import is_dtensor, sharded_linear
+
+    return sharded_linear(x, w) if is_dtensor(x) or is_dtensor(w) else x @ w
+
+
+def embed_lookup(table, ids):
+    """``table[ids]``.  Of a DTensor table it is ``F.embedding``, which
+    DTensor splits over the table's rows (its rule for the index gathers
+    the ids and so the whole batch), with the rows' partial sums taken."""
+    from repro_torch.sharding.context import is_dtensor, reduced
+
+    return reduced(F.embedding(ids, table)) if is_dtensor(table) else table[ids]
+
+
 def rms_norm(x, scale, eps: float = 1e-6):
     dt = x.dtype
     x = x.float()
@@ -261,7 +281,7 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None)
 
 
 def mlp_apply(params, x, mlp_type: str):
-    h = x @ params["w_in"]
+    h = linear(x, params["w_in"])
     if mlp_type in ("swiglu", "geglu"):
         g, u = h.chunk(2, dim=-1)
         # jax.nn.gelu is the tanh approximation by default
@@ -269,4 +289,4 @@ def mlp_apply(params, x, mlp_type: str):
         h = act * u
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ params["w_out"]
+    return linear(h, params["w_out"])

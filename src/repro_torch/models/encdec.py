@@ -8,9 +8,8 @@ LayerNorm with a bias, and logits against the tied embedding.
 
 The layers are stacked on a leading axis, as the JAX module's
 ``jax.vmap`` and ``lax.scan`` stack them, and walked with a Python loop.
-The JAX scans run without remat, and so do these loops; the JAX module's
-``constrain`` calls are left out, as in ``transformer.py``:
-``repro_torch.sharding.context.constrain`` is the identity on plain tensors.
+The JAX scans run without remat, and so do these loops.  Each layer's
+output is pinned with ``sharding.context.constrain``, as in the JAX module.
 
 Decode attends to the encoder K/V computed once at prefill, which the
 caches hold, plus a growing self-attention cache written in place by
@@ -23,8 +22,12 @@ import math
 
 import torch
 
+from repro_torch.sharding.context import constrain, last_row, splittable
+
 from .attention import attention_apply, attention_decode, attn_init
-from .common import ModelConfig, dense_init, layer_norm, mlp_apply, mlp_init, weak_scalar
+from .common import (
+    ModelConfig, dense_init, embed_lookup, layer_norm, linear, mlp_apply, mlp_init, weak_scalar,
+)
 from .transformer import _stack, _stacked_groups, _unbind
 
 __all__ = [
@@ -89,7 +92,7 @@ def encode(params, frames, cfg: ModelConfig):
     for p in _unbind(params["enc_layers"], cfg.n_encoder_layers):
         a, _ = attention_apply(p["attn"], _ln(x, p["ln1"], cfg.norm_eps), cfg, causal=False)
         x = x + a
-        x = x + mlp_apply(p["mlp"], _ln(x, p["ln2"], cfg.norm_eps), "gelu")
+        x = constrain(x + mlp_apply(p["mlp"], _ln(x, p["ln2"], cfg.norm_eps), "gelu"), "residual")
     return _ln(x, params["enc_ln"], cfg.norm_eps)
 
 
@@ -105,11 +108,13 @@ def _decoder(params, x, enc_states, cfg: ModelConfig, *, collect_cache: bool):
         x = x + a
         # cross attention: keys/values from encoder states (no rope)
         hq = _ln(x, p["ln_x"], cfg.norm_eps)
-        k = (enc_states @ p["cross_attn"]["wk"]).reshape(B, Se, kvh, hd)
-        v = (enc_states @ p["cross_attn"]["wv"]).reshape(B, Se, kvh, hd)
+        k = linear(enc_states, p["cross_attn"]["wk"])
+        v = linear(enc_states, p["cross_attn"]["wv"])
+        k = splittable(k, -1, kvh).reshape(B, Se, kvh, hd)
+        v = splittable(v, -1, kvh).reshape(B, Se, kvh, hd)
         a, kv_cross = attention_apply(p["cross_attn"], hq, cfg, causal=False, kv_override=(k, v))
         x = x + a
-        x = x + mlp_apply(p["mlp"], _ln(x, p["ln2"], cfg.norm_eps), "gelu")
+        x = constrain(x + mlp_apply(p["mlp"], _ln(x, p["ln2"], cfg.norm_eps), "gelu"), "residual")
         if collect_cache:
             caches.append({"self": {"k": kv_self[0], "v": kv_self[1]},
                            "cross": {"k": kv_cross[0], "v": kv_cross[1]}})  # fmt: skip
@@ -121,9 +126,9 @@ def encdec_forward(params, frames, dec_tokens, cfg: ModelConfig, *, collect_cach
     enc = encode(params, frames, cfg)
     S = dec_tokens.shape[1]
     pos = params["dec_pos"][torch.arange(S, device=dec_tokens.device) % cfg.max_pos]
-    x = params["embed"][dec_tokens] + pos[None]
+    x = embed_lookup(params["embed"], dec_tokens) + pos[None]
     x, caches = _decoder(params, x, enc, cfg, collect_cache=collect_cache)
-    logits = x @ params["embed"].T
+    logits = linear(x, params["embed"].T)
     aux = torch.zeros((), dtype=torch.float32, device=logits.device)
     if collect_cache:
         return logits, caches, aux
@@ -132,7 +137,7 @@ def encdec_forward(params, frames, dec_tokens, cfg: ModelConfig, *, collect_cach
 
 def encdec_prefill(params, frames, dec_tokens, cfg: ModelConfig):
     logits, caches, _ = encdec_forward(params, frames, dec_tokens, cfg, collect_cache=True)
-    return logits[:, -1], caches
+    return last_row(logits, 1), caches
 
 
 def init_decoder_caches(cfg: ModelConfig, batch: int, max_len: int, enc_len: int):
@@ -155,14 +160,14 @@ def encdec_decode_step(params, token, caches, cache_len, cfg: ModelConfig):
     B = token.shape[0]
     kvh, hd, nh = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
     pos = params["dec_pos"][min(int(cache_len), cfg.max_pos - 1)]
-    x = params["embed"][token] + pos[None, None]
+    x = embed_lookup(params["embed"], token) + pos[None, None]
     for p, c in zip(_unbind(params["dec_layers"], cfg.n_layers), _unbind(caches, cfg.n_layers)):
         hn = _ln(x, p["ln1"], cfg.norm_eps)
         a, _ = attention_decode(p["self_attn"], hn, c["self"], cache_len, cfg)
         x = x + a
         # cross attention against fixed encoder K/V
         hq = _ln(x, p["ln_x"], cfg.norm_eps)
-        q = (hq @ p["cross_attn"]["wq"]).reshape(B, 1, nh, hd)
+        q = splittable(linear(hq, p["cross_attn"]["wq"]), -1, nh).reshape(B, 1, nh, hd)
         ck, cv = c["cross"]["k"], c["cross"]["v"]
         rep = nh // kvh
         ckx = ck.repeat_interleave(rep, dim=2) if rep > 1 else ck
@@ -173,8 +178,8 @@ def encdec_decode_step(params, token, caches, cache_len, cfg: ModelConfig):
         pattn = torch.softmax(s, dim=-1)
         o = torch.einsum("bhqk,bkhd->bqhd", pattn.to(cvx.dtype).float(), cvx.float())
         o = o.to(cvx.dtype).reshape(B, 1, nh * hd)
-        x = x + o @ p["cross_attn"]["wo"]
+        x = x + linear(o, p["cross_attn"]["wo"])
         x = x + mlp_apply(p["mlp"], _ln(x, p["ln2"], cfg.norm_eps), "gelu")
     x = _ln(x, params["dec_ln"], cfg.norm_eps)
-    logits = (x @ params["embed"].T)[:, 0]
+    logits = linear(x, params["embed"].T)[:, 0]
     return logits, caches

@@ -44,7 +44,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from .common import ModelConfig, dense_init
+from repro_torch.sharding.context import from_shards, is_dtensor, local_shard
+
+from .common import ModelConfig, dense_init, linear, tree_map
 
 __all__ = ["moe_init", "moe_apply"]
 
@@ -88,6 +90,8 @@ def moe_apply(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
         ev = cfg.n_experts * cfg.moe_virtual_split
         if ev % M == 0:
             return _moe_ep(params, x, cfg, mesh, ep_axis, get_rule("moe_dp_axes"))
+    if is_dtensor(x):
+        return _moe_dense_whole(params, x, cfg)
     return _moe_dense(params, x, cfg)
 
 
@@ -110,7 +114,11 @@ def _route(params, xt, cfg: ModelConfig):
     gate, idx = _top_k(probs, K)
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
     me = probs.mean(0)
-    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / (T * K)
+    # bincount's counts, in a tensor whose shape does not depend on the
+    # data (``FakeTensorMode`` cannot run ``bincount``)
+    flat = idx.reshape(-1)
+    counts = torch.zeros(E, dtype=torch.int64, device=idx.device)
+    ce = counts.scatter_add_(0, flat, torch.ones_like(flat)).float() / (T * K)
     aux = E * torch.sum(me * ce)
     if split > 1:
         fan = torch.arange(split, device=idx.device)
@@ -165,6 +173,19 @@ def _moe_dense(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]
     return out, aux
 
 
+def _moe_dense_whole(params, x, cfg: ModelConfig):
+    """``_moe_dense`` of a DTensor ``x``: the routing has no DTensor rules,
+    so every rank gathers the tokens and the weights and runs the whole
+    layer (the same capacity as on one device)."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = x.device_mesh
+    whole = lambda t: local_shard(t, [Replicate()] * mesh.ndim)
+    out, aux = _moe_dense(tree_map(whole, params), whole(x), cfg)
+    return (from_shards(out, mesh, [Replicate()] * mesh.ndim, x.shape),
+            from_shards(aux, mesh, [Replicate()] * mesh.ndim, ()))  # fmt: skip
+
+
 def _bins(xt, st, slot, rows: int, dtype):
     """The sorted rows of ``xt`` at their ``slot``s of a [rows, D] buffer;
     one spare row takes the dropped assignments (``mode="drop"``) and is cut
@@ -191,9 +212,9 @@ def _combine(ye, slot, keep, sg, st, T: int, K: int):
 
 
 def _shared_mlp(p, x):
-    hs = x @ p["w_in"]
+    hs = linear(x, p["w_in"])
     g, u = hs.chunk(2, dim=-1)
-    return (F.silu(g) * u) @ p["w_out"]
+    return linear(F.silu(g) * u, p["w_out"])
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +241,8 @@ def _shared_mlp(p, x):
 
 def _exchange_device(group, dev: torch.device) -> torch.device:
     backend = str(dist.get_backend(group))
+    if backend == "fake":  # exchanges nothing: the shards stay where they are
+        return dev
     if "nccl" in backend and dev.type == "cuda":
         return dev
     if "gloo" in backend:
@@ -310,9 +333,7 @@ def _moe_ep(params, x, cfg: ModelConfig, mesh, ep_axis: str, dp_axes):
     from repro_torch.sharding.rules import _axis_size, _axis_sizes
 
     B, S, D = x.shape
-    split = cfg.moe_virtual_split
-    E_v = cfg.n_experts * split
-    K_v = cfg.top_k * split
+    E_v = cfg.n_experts * cfg.moe_virtual_split
     sizes = _axis_sizes(mesh)
     M = sizes[ep_axis]
     epr = E_v // M  # (virtual) experts per rank
@@ -322,13 +343,18 @@ def _moe_ep(params, x, cfg: ModelConfig, mesh, ep_axis: str, dp_axes):
     dp = (dp_axes,) if isinstance(dp_axes, str) else tuple(dp_axes or ())
     b_ax = dp if (dp and B % _axis_size(mesh, dp) == 0) else ()
     s_ax = (ep_axis,) if S % M == 0 else ()
+    group = {ax: mesh.get_group(ax) for ax in sizes}
+    xdev = _exchange_device(group[ep_axis], x.device)
+    # without the sequence split every rank of the EP axis sends the same
+    # tokens: the experts see each one M times
+    rep = 1.0 if s_ax else 1.0 / M
+    if is_dtensor(x):
+        return _moe_ep_sharded(params, x, cfg, mesh, b_ax, s_ax, ep_axis, epr, group, xdev, rep)
     bi = 0
     for ax in b_ax:
         bi = bi * sizes[ax] + mesh.get_local_rank(ax)
     Bl, Sl = B // _axis_size(mesh, b_ax), S // _axis_size(mesh, s_ax)
     si = r if s_ax else 0
-    group = {ax: mesh.get_group(ax) for ax in sizes}
-    xdev = _exchange_device(group[ep_axis], x.device)
     # the axes whose ranks hold different tokens (size 1: nothing to sum)
     split_groups = [group[ax] for ax in (*b_ax, *s_ax) if sizes[ax] > 1]
     dp_groups = [group[ax] for ax in b_ax if sizes[ax] > 1]
@@ -337,36 +363,11 @@ def _moe_ep(params, x, cfg: ModelConfig, mesh, ep_axis: str, dp_axes):
         return _SumGrad.apply(t, groups, xdev, scale) if groups or scale != 1 else t
 
     xl = summed(x, split_groups).narrow(0, bi * Bl, Bl).narrow(1, si * Sl, Sl)
-    T = Bl * Sl
-    xt = xl.reshape(T, D)
     router = summed(params["router"], split_groups)
-    idx_v, gate_v, aux = _route({"router": router}, xt, cfg)
-
-    A = T * K_v
-    cap = max(int(A / E_v * cfg.capacity_factor) + 1, 4)
-    order, st, keep, slot = _dispatch(idx_v, T, E_v, cap)
-    bins = _bins(xt, st, slot, E_v * cap, x.dtype).reshape(E_v, cap, D)
-
-    # ---- bucket exchange: one all_to_all each way
-    recv = _exchange(bins, group[ep_axis], xdev)
-    # recv rows are source-rank-major: [M, epr, cap, D]
-    toks = recv.reshape(M, epr, cap, D).transpose(0, 1).reshape(epr, M * cap, D)
-    # without the sequence split every rank of the EP axis sends the same
-    # tokens: the experts see each one M times
-    rep = 1.0 if s_ax else 1.0 / M
     w_in = summed(_expert_rows(params["experts"]["w_in"], r, epr, E_v), dp_groups, rep)
     w_out = summed(_expert_rows(params["experts"]["w_out"], r, epr, E_v), dp_groups, rep)
-    dt = torch.promote_types(toks.dtype, w_in.dtype)
-    h = torch.bmm(toks.to(dt), w_in.to(dt))
-    g, u = h.chunk(2, dim=-1)
-    h = F.silu(g) * u
-    dt = torch.promote_types(h.dtype, w_out.dtype)
-    ye = torch.bmm(h.to(dt), w_out.to(dt))
-    back = ye.reshape(epr, M, cap, D).transpose(0, 1).reshape(E_v, cap, D)
-    ret = _exchange(back, group[ep_axis], xdev)  # my tokens' outputs, expert-major
-
-    sg = gate_v.reshape(-1)[order]
-    out = _combine(ret, slot, keep, sg, st, T, K_v).to(x.dtype).reshape(Bl, Sl, D)
+    out, aux = _ep_experts(xl.reshape(Bl * Sl, D), router, w_in, w_out, cfg, group[ep_axis], xdev)
+    out = out.to(x.dtype).reshape(Bl, Sl, D)
     mesh_groups = [(group[ax], n) for ax, n in sizes.items() if n > 1]
     if mesh_groups:
         aux = _MeanOverMesh.apply(aux, mesh_groups, xdev, _axis_size(mesh, (*b_ax, *s_ax)))
@@ -376,6 +377,69 @@ def _moe_ep(params, x, cfg: ModelConfig, mesh, ep_axis: str, dp_axes):
     for ax in reversed(b_ax):
         if sizes[ax] > 1:
             out = _Gather.apply(out, 0, group[ax], xdev)
+    if "shared" in params:
+        out = out + _shared_mlp(params["shared"], x)
+    return out, aux
+
+
+def _ep_experts(xt, router, w_in, w_out, cfg: ModelConfig, ep_group, xdev):
+    """A rank's tokens ``xt`` [T, D] through the experts of the EP axis:
+    route, bin expert-major, exchange, the grouped products of this rank's
+    experts (``w_in``, ``w_out``: its rows), exchange back, combine.
+    Returns (out [T, D] float32, the rank's aux)."""
+    T, D = xt.shape
+    E_v = cfg.n_experts * cfg.moe_virtual_split
+    K_v = cfg.top_k * cfg.moe_virtual_split
+    epr = w_in.shape[0]
+    M = E_v // epr
+    idx_v, gate_v, aux = _route({"router": router}, xt, cfg)
+
+    A = T * K_v
+    cap = max(int(A / E_v * cfg.capacity_factor) + 1, 4)
+    order, st, keep, slot = _dispatch(idx_v, T, E_v, cap)
+    bins = _bins(xt, st, slot, E_v * cap, xt.dtype).reshape(E_v, cap, D)
+
+    # ---- bucket exchange: one all_to_all each way
+    recv = _exchange(bins, ep_group, xdev)
+    # recv rows are source-rank-major: [M, epr, cap, D]
+    toks = recv.reshape(M, epr, cap, D).transpose(0, 1).reshape(epr, M * cap, D)
+    dt = torch.promote_types(toks.dtype, w_in.dtype)
+    h = torch.bmm(toks.to(dt), w_in.to(dt))
+    g, u = h.chunk(2, dim=-1)
+    h = F.silu(g) * u
+    dt = torch.promote_types(h.dtype, w_out.dtype)
+    ye = torch.bmm(h.to(dt), w_out.to(dt))
+    back = ye.reshape(epr, M, cap, D).transpose(0, 1).reshape(E_v, cap, D)
+    ret = _exchange(back, ep_group, xdev)  # my tokens' outputs, expert-major
+
+    sg = gate_v.reshape(-1)[order]
+    return _combine(ret, slot, keep, sg, st, T, K_v), aux
+
+
+def _moe_ep_sharded(params, x, cfg, mesh, b_ax, s_ax, ep_axis, epr, group, xdev, rep):
+    """``_moe_ep`` of a DTensor ``x`` (JAX's ``shard_map``): each rank takes
+    its block of x (batch over ``b_ax``, sequence over ``s_ax``) and its
+    experts' rows, gathered over the other axes, and its output stays its
+    block.  Weights that ranks holding different tokens share get their
+    gradients summed (``Partial``); aux is the mean over those ranks."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    split = [n in (*b_ax, *s_ax) and mesh.size(i) > 1 for i, n in enumerate(names)]
+    xp = [Shard(0) if n in b_ax else Shard(1) if n in s_ax else Replicate() for n in names]
+    shared = [Partial() if sp else Replicate() for sp in split]
+    wp = [Shard(0) if n == ep_axis else Replicate() for n in names]
+    wgrad = [Shard(0) if n == ep_axis else Partial() if n in b_ax else Replicate()
+             for n in names]  # fmt: skip
+    xl = local_shard(x, xp)
+    router = local_shard(params["router"], [Replicate()] * len(names), shared)
+    w_in, w_out = (local_shard(params["experts"][k], wp, wgrad) for k in ("w_in", "w_out"))
+    if rep != 1:
+        w_in, w_out = (_SumGrad.apply(w, [], xdev, rep) for w in (w_in, w_out))
+    Bl, Sl, D = xl.shape
+    out, aux = _ep_experts(xl.reshape(Bl * Sl, D), router, w_in, w_out, cfg, group[ep_axis], xdev)
+    out = from_shards(out.to(x.dtype).reshape(Bl, Sl, D), mesh, xp, x.shape)
+    aux = from_shards(aux, mesh, [Partial("avg") if sp else Replicate() for sp in split], ())
     if "shared" in params:
         out = out + _shared_mlp(params["shared"], x)
     return out, aux

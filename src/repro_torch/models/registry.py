@@ -77,9 +77,11 @@ def model_prefill(params, batch: Dict[str, Any], cfg: ModelConfig):
 
 
 def model_caches(cfg: ModelConfig, batch: int, max_len: int, *, enc_len: int = 0, device="cuda"):
-    """Zero caches on ``device``; ``enc_len`` is the encoder-decoder kind's
-    (``max_len`` when 0, as in the JAX package)."""
-    with resolve_device(device):
+    """Zero caches on ``device`` (``"meta"`` too: shapes and dtypes only);
+    ``enc_len`` is the encoder-decoder kind's (``max_len`` when 0, as in the
+    JAX package)."""
+    meta = torch.device(device).type == "meta"
+    with torch.device("meta") if meta else resolve_device(device):
         if cfg.is_encoder_decoder:
             return encdec.init_decoder_caches(cfg, batch, max_len, enc_len or max_len)
         return transformer.init_caches(cfg, batch, max_len)

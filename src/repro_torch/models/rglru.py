@@ -23,7 +23,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, dense_init
+from repro_torch.sharding.context import pointwise
+
+from .common import ModelConfig, dense_init, linear
 from .ssm import _causal_conv
 
 __all__ = ["rglru_init", "rglru_apply", "rglru_decode", "init_rglru_cache"]
@@ -49,9 +51,9 @@ def rglru_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def _gates(params, x):
     """x: [..., w] (post conv). Returns (a, b) of the recurrence, float32."""
-    r = torch.sigmoid((x @ params["w_a"]).float() + params["b_a"])
-    i = torch.sigmoid((x @ params["w_i"]).float() + params["b_i"])
-    log_a = _C * r * F.logsigmoid(params["lam"])  # [..., w], negative
+    r = torch.sigmoid(linear(x, params["w_a"]).float() + params["b_a"])
+    i = torch.sigmoid(linear(x, params["w_i"]).float() + params["b_i"])
+    log_a = _C * r * pointwise(F.logsigmoid, params["lam"])  # [..., w], negative
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * x.float())
     return a, b
@@ -72,8 +74,8 @@ def _scan(a, b):
 
 def rglru_apply(params, x, cfg: ModelConfig, *, initial_state=None) -> Tuple[torch.Tensor, dict]:
     """x: [B, S, D].  Returns (out, cache)."""
-    xr = x @ params["w_x"]
-    gate = F.gelu(x @ params["w_gate"], approximate="tanh")
+    xr = linear(x, params["w_x"])
+    gate = F.gelu(linear(x, params["w_gate"]), approximate="tanh")
     xc, conv_state = _causal_conv(xr, params["conv"])
     a, b = _gates(params, xc)  # [B,S,w] f32
     if initial_state is not None:
@@ -81,7 +83,7 @@ def rglru_apply(params, x, cfg: ModelConfig, *, initial_state=None) -> Tuple[tor
         b = torch.cat([(b[:, 0] + a[:, 0] * initial_state)[:, None], b[:, 1:]], dim=1)
     h = _scan(a, b)
     out = h.to(x.dtype) * gate
-    out = out @ params["w_out"]
+    out = linear(out, params["w_out"])
     return out, {"h": h[:, -1], "conv": conv_state}
 
 
@@ -99,13 +101,13 @@ def rglru_decode(params, x, cache, cfg: ModelConfig):
 
     Writes the new state and conv tail into ``cache`` in place (the JAX
     module returns them as a new cache) and returns ``(out, cache)``."""
-    xr = x @ params["w_x"]
-    gate = F.gelu(x @ params["w_gate"], approximate="tanh")
+    xr = linear(x, params["w_x"])
+    gate = F.gelu(linear(x, params["w_gate"]), approximate="tanh")
     xc, conv_state = _causal_conv(xr, params["conv"], state=cache["conv"])
     a, b = _gates(params, xc[:, 0])
     h = a * cache["h"] + b
     out = h[:, None].to(x.dtype) * gate
-    out = out @ params["w_out"]
+    out = linear(out, params["w_out"])
     cache["h"].copy_(h)
     cache["conv"].copy_(conv_state)
     return out, cache

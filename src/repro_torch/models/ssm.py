@@ -36,7 +36,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, dense_init, rms_norm
+from repro_torch.sharding.context import from_shards, is_dtensor, local_shard
+
+from .common import ModelConfig, dense_init, linear, rms_norm
 
 __all__ = ["ssd_init", "ssd_apply", "ssd_decode", "init_ssd_cache"]
 
@@ -61,7 +63,7 @@ def ssd_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def _split_in(params, x, cfg: ModelConfig):
     di, ns = cfg.d_inner, cfg.ssm_state
-    zxbcdt = x @ params["w_in"]
+    zxbcdt = linear(x, params["w_in"])
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di : di + di + 2 * ns]
     dt = zxbcdt[..., di + di + 2 * ns :]
@@ -134,6 +136,20 @@ def ssd_apply(params, x, cfg: ModelConfig, *, chunk: int = 256,
     dt = F.softplus(dt.float() + params["dt_bias"])  # [B,S,nh]
     dA = dt * a  # [B,S,nh] log-decay per step
 
+    scan = _sharded_scan if is_dtensor(xs) else _scan
+    y, h = scan(xs, Bm, Cm, dA, dt, chunk, initial_state)
+    y = y + xs * params["d_skip"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(B, S, di)
+    y = rms_norm(y * F.silu(z), params["norm"], 1e-6)
+    out = linear(y, params["w_out"])
+    return out, {"ssm": h, "conv": conv_state}
+
+
+def _scan(xs, Bm, Cm, dA, dt, chunk: int, h0):
+    """The chunked scan: y [B, S, nh, hd] in xs's dtype and the final state
+    h [B, nh, hd, ns] float32 (from ``h0``, zeros when ``None``)."""
+    B, S, nh, hd = xs.shape
+    ns = Bm.shape[-1]
     chunk = min(chunk, S)
     nc = -(-S // chunk)
     pad = nc * chunk - S
@@ -150,19 +166,42 @@ def ssd_apply(params, x, cfg: ModelConfig, *, chunk: int = 256,
     dA_c = dA_p.reshape(B, nc, CH, nh).permute(1, 0, 3, 2)  # [nc,B,nh,CH]
     dt_c = dt_p.reshape(B, nc, CH, nh).permute(1, 0, 3, 2)
 
-    h = initial_state
+    h = h0
     if h is None:
-        h = torch.zeros((B, nh, hd, ns), dtype=torch.float32, device=x.device)
+        h = torch.zeros((B, nh, hd, ns), dtype=torch.float32, device=xs.device)
     ys = []
     for c in range(nc):
         h, y = _chunk(h, xs_c[c], Bm_c[c], Cm_c[c], dA_c[c], dt_c[c])
         ys.append(y)
-    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, nc * CH, nh, hd)[:, :S]
-    y = y + xs * params["d_skip"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(B, S, di)
-    y = rms_norm(y * F.silu(z), params["norm"], 1e-6)
-    out = y @ params["w_out"]
-    return out, {"ssm": h, "conv": conv_state}
+    return torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(B, nc * CH, nh, hd)[:, :S], h
+
+
+def _sharded_scan(xs, Bm, Cm, dA, dt, chunk: int, h0):
+    """:func:`_scan` of DTensors, on each rank's shard: the scan runs along
+    the whole sequence, each rank over its split of the batch, else of the
+    heads (B and C are whole; their gradients summed over the head split)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = xs.device_mesh
+    nh = xs.shape[2]
+    by_head, shared, grad = [], [], []
+    for i, p in enumerate(xs.placements):
+        if p.is_shard(0):
+            by_head.append(Shard(0)), shared.append(Shard(0)), grad.append(Shard(0))
+        elif nh % mesh.size(i) == 0:
+            by_head.append(Shard(2)), shared.append(Replicate()), grad.append(Partial())
+        else:
+            by_head.append(Replicate()), shared.append(Replicate()), grad.append(Replicate())
+    state = [Shard(1) if p == Shard(2) else p for p in by_head]
+    if h0 is not None:
+        whole = [Replicate()] * mesh.ndim
+        h0 = local_shard(h0 if is_dtensor(h0) else from_shards(h0, mesh, whole, h0.shape), state)
+    y, h = _scan(local_shard(xs, by_head), local_shard(Bm, shared, grad),
+                 local_shard(Cm, shared, grad), local_shard(dA, by_head),
+                 local_shard(dt, by_head), chunk, h0)  # fmt: skip
+    B, S, _, hd = xs.shape
+    return (from_shards(y, mesh, by_head, xs.shape),
+            from_shards(h, mesh, state, (B, nh, hd, Bm.shape[-1])))  # fmt: skip
 
 
 def init_ssd_cache(cfg: ModelConfig, batch: int):
@@ -199,7 +238,7 @@ def ssd_decode(params, x, cache, cfg: ModelConfig):
     y = y + xs * params["d_skip"][None, :, None]
     y = y.reshape(B, 1, di).to(x.dtype)
     y = rms_norm(y * F.silu(z), params["norm"], 1e-6)
-    out = y @ params["w_out"]
+    out = linear(y, params["w_out"])
     cache["ssm"].copy_(h)
     cache["conv"].copy_(conv_state)
     return out, cache

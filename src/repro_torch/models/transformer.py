@@ -8,10 +8,10 @@ in {mlp, moe}.
 The parameter and cache trees have the JAX package's layout: a segment's
 tensors are stacked on a leading group axis (as ``jax.vmap`` and
 ``lax.scan`` stack them), and the layers are walked with a Python loop over
-that axis.  The JAX module pins activations' sharding with
-``sharding.context.constrain``; its counterpart,
-``repro_torch.sharding.context.constrain``, is the identity on the plain
-tensors these layers take, so the port leaves those calls out.
+that axis.  Activations are pinned with ``sharding.context.constrain`` at
+the JAX module's three points (the embedding output, each group's carry,
+the logits): the identity on a plain tensor, a ``redistribute`` on a
+DTensor.
 
 The same assembly serves:
   * ``forward``      — teacher-forced logits (VLM prefix included); under
@@ -29,10 +29,14 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding.context import constrain, last_row, unbound
+
 from .attention import attention_apply, attention_decode, attn_init, init_kv_cache
 from .common import (
     ModelConfig,
     dense_init,
+    embed_lookup,
+    linear,
     mlp_apply,
     mlp_init,
     rms_norm,
@@ -73,7 +77,7 @@ def _check_kind(kind: str) -> Tuple[str, Optional[str]]:
 
 def _unbind(tree, n: int):
     """The ``n`` groups of a stacked segment tree (views, not copies)."""
-    parts = [t.unbind(0) for t in tree_leaves(tree)]
+    parts = [unbound(t) for t in tree_leaves(tree)]
     return [tree_unflatten(tree, [p[g] for p in parts]) for g in range(n)]
 
 
@@ -219,7 +223,9 @@ def _run_segments(params, x, cfg: ModelConfig, *, collect_cache: bool):
                 x, c, a = _apply_block(gp[f"pos{j}"], x, kind, cfg, collect_cache=collect_cache)
                 aux = aux + a
                 cache_out[f"pos{j}"] = c
-            return x, aux, cache_out
+            # pin the carry's sharding: the saved-for-backward residuals
+            # dominate training memory
+            return constrain(x, "residual"), aux, cache_out
 
         remat_body = apply_remat(group_body, cfg.remat_policy)
         seg = params["segments"][s]
@@ -244,7 +250,7 @@ def _logits(params, x, cfg: ModelConfig):
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    return x @ head
+    return linear(x, head)
 
 
 def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None, collect_cache: bool = False):
@@ -254,11 +260,12 @@ def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None, collect_cac
     prepended to the token embeddings; logits cover the full sequence, the
     caller slices the token region.
     """
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    x = constrain(x, "residual")
     x, caches, aux = _run_segments(params, x, cfg, collect_cache=collect_cache)
-    logits = _logits(params, x, cfg)
+    logits = constrain(_logits(params, x, cfg), "logits")
     if collect_cache:
         return logits, caches, aux
     return logits, aux
@@ -294,7 +301,7 @@ def prefill(params, tokens, cfg: ModelConfig, *, prefix_embeds=None):
     logits, caches, _aux = forward(
         params, tokens, cfg, prefix_embeds=prefix_embeds, collect_cache=True
     )
-    return logits[:, -1], caches
+    return last_row(logits, 1), caches
 
 
 def decode_step(params, token, caches, cache_len, cfg: ModelConfig):
@@ -304,7 +311,7 @@ def decode_step(params, token, caches, cache_len, cfg: ModelConfig):
     place: the returned tree is ``caches`` itself, holding what the JAX
     package's ``decode_step`` returns as new caches.
     """
-    x = params["embed"][token]  # [B,1,D]
+    x = embed_lookup(params["embed"], token)  # [B,1,D]
     for s, (pattern, n_groups) in enumerate(cfg.segments):
         for gp, gc in zip(_unbind(params["segments"][s], n_groups), _unbind(caches[s], n_groups)):
             for j, kind in enumerate(pattern):

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.common import ModelConfig
+from repro_torch.sharding.context import aligned, from_shards, gathered, is_dtensor
 
 __all__ = ["lm_loss"]
 
@@ -26,10 +27,24 @@ def lm_loss(logits, labels, cfg: ModelConfig):
     if cfg.vocab_padded > cfg.vocab_size:
         pad_mask = torch.arange(vp, device=logits.device) >= cfg.vocab_size
         logits = torch.where(pad_mask, -1e30, logits)
+    if is_dtensor(logits):
+        # vocabulary whole, and the labels split as the logits' tokens
+        logits = gathered(logits, -1)
+        labels = aligned(labels, logits)
     valid = labels != IGNORE
     safe = torch.where(valid, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    ll = _picked(logits, safe)
     nll = (logz - ll) * valid
     n = torch.clamp_min(valid.sum(dtype=torch.int32), 1)
     return nll.sum() / n, n
+
+
+def _picked(logits, safe):
+    """``logits[..., safe]``, each token's label's logit.  Of DTensors it is
+    taken on each rank's tokens: DTensor's rule for the gather makes its
+    gradient from a zero tensor of the global shape."""
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, safe[..., None])[..., 0]
+    picked = torch.gather(logits.to_local(), -1, safe.to_local()[..., None])[..., 0]
+    return from_shards(picked, logits.device_mesh, logits.placements, safe.shape)

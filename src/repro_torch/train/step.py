@@ -19,6 +19,7 @@ import torch
 from repro_torch.models import model_decode, model_forward, model_prefill
 from repro_torch.models.common import ModelConfig, tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import OptConfig, adamw_update
+from repro_torch.sharding.context import gathered, is_dtensor
 
 from .loss import lm_loss
 
@@ -62,11 +63,18 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, *, microbatches: int = 1):
         else:
             def split(x):
                 b = x.shape[0]
+                if is_dtensor(x):
+                    # a view cannot move the batch's split to the rows of
+                    # each microbatch: gather the batch, then split the rows
+                    from torch.distributed.tensor import Shard
+
+                    places = [Shard(p.dim + 1) if p.is_shard() else p for p in x.placements]
+                    x = gathered(x, 0).reshape(microbatches, b // microbatches, *x.shape[1:])
+                    return x.redistribute(x.device_mesh, places)
                 return x.reshape(microbatches, b // microbatches, *x.shape[1:])
 
             mb = tree_map(split, batch)
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                             params)  # fmt: skip
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             loss = torch.zeros((), dtype=torch.float32, device=device)
             for i in range(microbatches):
                 (l, metrics), g = _value_and_grad(loss_fn, params, tree_map(lambda x: x[i], mb))
@@ -106,7 +114,9 @@ def make_decode_step(cfg: ModelConfig, *, sample: bool = False):
         logits, new_caches = model_decode(
             params, batch["token"], caches, batch["cache_len"], cfg
         )
-        next_tok = torch.argmax(logits[..., : cfg.vocab_size], dim=-1).to(torch.int32)
+        # DTensor's argmax cannot reduce over a split vocabulary: gather it
+        real = gathered(logits, -1)[..., : cfg.vocab_size]
+        next_tok = torch.argmax(real, dim=-1).to(torch.int32)
         return next_tok, logits, new_caches
 
     return decode_step

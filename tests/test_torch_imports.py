@@ -14,7 +14,11 @@
   modules too, and ``launch.mesh`` but for its added ``device_type``;
   ``models.moe``,
   ``models.mla``, ``models.ssm``, ``models.rglru`` and ``models.encdec``
-  too, but for the init functions' generator.
+  too, but for the init functions' generator; ``core``, ``engines``,
+  ``kernels`` (and ``kernels.rng``), ``serve``,
+  ``models.{common,attention,transformer,registry}`` and ``launch.*``
+  (``launch.dryrun`` included) differ from the JAX package's names and
+  signatures by exactly a pinned list of edits.
 * An engine built with the default device raises a clear error on a host
   without a CUDA device instead of falling back to the CPU.
 """
@@ -95,6 +99,7 @@ def test_port_imports_neither_jax_nor_repro(tmp_path):
         "repro_torch.runtime.fault",
         "repro_torch.launch.train",
         "repro_torch.launch.mesh",
+        "repro_torch.launch.dryrun",
         "repro_torch.sharding",
         "repro_torch.sharding.context",
         "repro_torch.sharding.rules",
@@ -361,6 +366,134 @@ def test_sharding_and_mesh_signatures_match_jax_but_for_the_device_type():
             if name == "make_production_mesh":
                 jax_params = jax_params + [["device_type", "KEYWORD_ONLY", "'cuda'"]]
             assert port_params == jax_params, f"{pkg}.{name}"
+
+
+_ALL_SIGNATURES_PROBE = r"""
+import importlib, inspect, json, sys, types
+
+def exported(mod):  # __all__, else the public functions and classes the module defines
+    if hasattr(mod, "__all__"):
+        return list(mod.__all__)
+    return [n for n in dir(mod) if not n.startswith("_") and callable(getattr(mod, n))
+            and getattr(getattr(mod, n), "__module__", None) == mod.__name__]
+
+def params(obj):  # (name, kind, default) of each parameter, the port's package named as JAX's
+    if isinstance(obj, types.ModuleType):
+        return "module"
+    if not callable(obj):
+        return type(obj).__name__
+    try:
+        sig = inspect.signature(obj)
+    except ValueError:  # a builtin's subclass (an exception type): none to compare
+        return "no signature"
+    return [[p.name, p.kind.name, repr(p.default).replace("repro_torch.", "repro.")]
+            for p in sig.parameters.values()]
+
+out = {}
+for pkg in sys.argv[1:]:
+    jax_mod = importlib.import_module("repro." + pkg)
+    port_mod = importlib.import_module("repro_torch." + pkg)
+    jax_names, port_names = exported(jax_mod), exported(port_mod)
+    out[pkg] = {"jax_only": sorted(set(jax_names) - set(port_names)),
+                "port_only": sorted(set(port_names) - set(jax_names)),
+                "params": {n: [params(getattr(jax_mod, n)), params(getattr(port_mod, n))]
+                           for n in sorted(set(jax_names) & set(port_names))}}
+print(json.dumps(out))
+"""
+
+_CUDA = "'cuda'"
+
+
+def _kw(name, default=_CUDA):
+    return [name, "KEYWORD_ONLY", default]
+
+
+#: every known difference of the remaining packages' signatures, as edits of
+#: the JAX parameters: ``drop`` names, ``default`` {name: the port's},
+#: ``rename`` {JAX's: the port's}, ``after`` {name: parameters inserted after
+#: it}, ``append`` parameters; each package also lists the names only one
+#: side exports.  The port's ``device`` (it runs on the card unless asked)
+#: and ``advance_impl``, the Pallas knobs it drops (``interpret``,
+#: ``walk_tile``, ``advance_interpret``), a ``torch.Generator`` ``gen`` for a
+#: PRNG ``key``, the launchers' ``argv``, ``device_type`` for the meshes the
+#: dry run builds, and its artifact's keyword, ``save_comms`` for ``save_hlo``
+_ENGINE = {"default": {"advance_impl": _CUDA}, "drop": ["advance_interpret"],
+           "after": {"advance_impl": [_kw("device")]}}  # fmt: skip
+_WALKER = {"append": [_kw("advance_impl"), _kw("device")]}
+_RESULT = {"append": [["advance_calls", "POSITIONAL_OR_KEYWORD", "0"]]}
+_GEN = {"rename": {"key": "gen"}}
+_ARGV = {"append": [["argv", "POSITIONAL_OR_KEYWORD", "None"]]}
+_PINNED = {
+    "core": ({"advance_pair"}, {"BlockView", "ResidentPair", "pair_advance_ref"},
+             {"EngineBase": _ENGINE, "InMemoryWalker": _WALKER, "WalkResult": _RESULT}),
+    "engines": ({"advance_pair", "pair_advance_impl"}, {"pair_advance_ref", "resolve_device"},
+                {"EngineBase": _ENGINE, "InMemoryWalker": _WALKER, "WalkResult": _RESULT,
+                 "ResidentPair": {"append": [["device", "POSITIONAL_OR_KEYWORD", _CUDA]]}}),
+    "kernels": ({"WALK_TILE", "pair_advance_kernel"}, set(),
+                {"alias_step": {"drop": ["interpret", "walk_tile"]},
+                 "node2vec_step": {"drop": ["interpret", "walk_tile"]},
+                 "fused_advance_pair": {"drop": ["interpret", "walk_tile"]},
+                 "bucket_hist_kernel": {"drop": ["interpret"]},
+                 "bucket_hist_ref": {"append": [_kw("tile", "1024")]}}),
+    "kernels.rng": (set(), {"bits_to_unit"}, {"key_halves": {"rename": {"key": "seed"}}}),
+    "serve": (set(), set(), {"WalkQueryServer": {
+        "after": {"engine_cls": [_kw("device"), _kw("advance_impl")]}}}),
+    "models.common": (set(), set(), {"ModelConfig": {"default": {"dtype": "torch.bfloat16"}},
+                                     "dense_init": _GEN, "mlp_init": _GEN}),
+    "models.attention": (set(), set(), {"attn_init": _GEN}),
+    "models.transformer": (set(), set(), {"init_params": _GEN}),
+    "models.registry": (set(), set(), {"model_init": {"append": [_kw("device")]},
+                                       "model_caches": {"append": [_kw("device")]}}),
+    "launch.walk": (set(), {"csv_row", "parse_args"}, {"main": _ARGV}),
+    "launch.serve": (set(), {"parse_args", "skewed_sources"}, {"main": _ARGV}),
+    "launch.train": (set(), {"parse_args"}, {"main": {"append": [
+        ["argv", "POSITIONAL_OR_KEYWORD", "None"], _kw("on_metrics", "None")]}}),
+    "launch.mesh": (set(), set(), {"make_production_mesh": {"append": [_kw("device_type")]}}),
+    "launch.dryrun": (set(), {"RESULTS_DIR"}, {
+        "main": _ARGV, "run_all": {"append": [_kw("device_type")]},
+        "run_cell": {"rename": {"save_hlo": "save_comms"}, "append": [_kw("device_type")]}}),
+}  # fmt: skip
+
+
+def _edited(params, drop=(), default=None, rename=None, after=None, append=()):
+    out = []
+    for name, kind, dflt in params:
+        if name in drop:
+            continue
+        out.append([(rename or {}).get(name, name), kind, (default or {}).get(name, dflt)])
+        out.extend((after or {}).get(name, []))
+    return out + list(append)
+
+
+@pytest.fixture(scope="module")
+def all_signatures():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-c", _ALL_SIGNATURES_PROBE, *_PINNED],
+        capture_output=True, text=True, env=env, check=True,
+    ).stdout  # fmt: skip
+    import json
+
+    return json.loads(out.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("pkg", list(_PINNED))
+def test_remaining_signatures_match_jax_but_for_the_pinned_differences(all_signatures, pkg):
+    """``core``, ``engines``, ``kernels`` (and ``kernels.rng``), ``serve``,
+    ``models.{common,attention,transformer,registry}`` and ``launch.*``: the
+    names each side exports, and every shared name's parameters (names,
+    kinds, defaults, in order), differ from the JAX package's by exactly the
+    pinned list (``launch.dryrun``'s ``RESULTS_DIR`` is a module constant in
+    JAX, not exported; the port writes to its own directory)."""
+    jax_only, port_only, edits = _PINNED[pkg]
+    res = all_signatures[pkg]
+    assert set(res["jax_only"]) == jax_only and set(res["port_only"]) == port_only
+    assert set(edits) <= set(res["params"]), pkg
+    for name, (jax_params, port_params) in res["params"].items():
+        if isinstance(jax_params, str):  # a module or a constant: the same kind
+            assert port_params == jax_params, f"{pkg}.{name}"
+            continue
+        assert port_params == _edited(jax_params, **edits.get(name, {})), f"{pkg}.{name}"
 
 
 def test_core_reexports_the_storage_layer_and_the_engine_shim():

@@ -212,6 +212,59 @@ def test_ssd_forward_matches_jax_over_a_long_chunk():
     _close(got, want, what="logits over 300 positions")
 
 
+def _f64_recurrence(tp, tcfg, toks):
+    """Every position's logits from the port's own decode recurrence run in
+    float64: the weights and the zero caches in float64 and every
+    ``.float()`` of the model code a float64 cast, stepping from position 0
+    (no chunked scan, no cumulative sums)."""
+    from unittest import mock
+
+    from repro_torch.models import model_caches, model_decode
+
+    cfg = dataclasses.replace(tcfg, dtype=torch.float64)
+    params = tree_map(lambda t: t.double(), tp)
+    caches = model_caches(cfg, toks.shape[0], toks.shape[1], device="cpu")
+    caches = tree_map(lambda t: t.double(), caches)
+    out = []
+    with mock.patch.object(torch.Tensor, "float", lambda self: self.to(torch.float64)):
+        for t in range(toks.shape[1]):
+            logits, _ = model_decode(params, toks[:, t : t + 1], caches, t, cfg)
+            assert logits.dtype == torch.float64
+            out.append(logits)
+    return torch.stack(out, 1)
+
+
+@pytest.mark.parametrize("length", [512, 1024])
+def test_ssd_forward_holds_the_float64_recurrence_past_a_chunk(length):
+    """The reduced mamba2 over 512 and 1,024 positions (two and four
+    256-position chunks), the JAX package's weights: the port's forward is
+    within ATOL of a float64 run of its own decode recurrence (measured
+    1.5e-5 at both lengths), and the JAX package's forward is farther from
+    it than the port's.  The JAX module's difference of float32 cumulative
+    sums drifts with the length (1.1e-4 at 300, 1.5e-4 at 512, 2.0e-4 at
+    1,024 from the float64 run), so past 300 positions the port and JAX
+    part by more than ATOL (1.28 x ATOL at 512): the float64 recurrence,
+    not JAX, is the reference there."""
+    from repro.models import model_forward as j_forward
+    from repro.models import model_init as j_init
+
+    from repro_torch.convert import lm_params_from_arrays
+    from repro_torch.models import model_forward
+
+    jcfg, tcfg = _configs("mamba2-2.7b")
+    jp = j_init(jax.random.PRNGKey(0), jcfg)
+    tp = lm_params_from_arrays(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    toks = np.random.default_rng(0).integers(1, jcfg.vocab_size, (B, length)).astype(np.int32)
+    exact = _np(_f64_recurrence(tp, tcfg, torch.as_tensor(toks)))
+    got = _np(model_forward(tp, {"tokens": torch.as_tensor(toks)}, tcfg)[0])
+    want = np.asarray(j_forward(jp, {"tokens": jnp.asarray(toks)}, jcfg)[0])
+    _close(got, exact, what=f"the port over {length} positions against the float64 recurrence")
+    port_gap, jax_gap = np.abs(got - exact).max(), np.abs(want - exact).max()
+    print(f"{length} positions: port {port_gap:.3g}, JAX {jax_gap:.3g} from float64; "
+          f"port - JAX {np.abs(got - want).max():.3g}")  # fmt: skip
+    assert jax_gap > port_gap
+
+
 def _chained_decode(j_decode, t_decode, jcache, tcache, jp, tp, jcfg, tcfg, xs):
     """Steps through both packages' decode; the port's cache tensors stay
     the same objects at the same addresses and hold JAX's new caches."""
