@@ -180,7 +180,21 @@ Phases (each raises on failure, so the script exits non-zero):
    FLOPs (``FlopCounterMode``) within DRYRUN_FLOPS_TOL of the estimate's;
    (14b) ``run_cell`` at full width on the fake (16, 16) mesh (256 fake
    ranks) for DRYRUN_CELLS, each record printed; a cell that fails fails
-   the phase.  The phase launches neither kernel.
+   the phase.  The phase launches neither kernel;
+15. dense serving of the last four configs — qwen1.5-0.5b (QKV bias),
+   internvl2-1b (256 patch embeddings from the stub frontend before the
+   tokens), phi3-mini-3.8b (head_dim 96, 32 KV heads) and yi-34b (56 query
+   heads over 8 KV heads) at their published widths: (15a) in float32 with
+   TF32 off, each cut to 2 layers, 2 prompts of 128 tokens (internvl2-1b's
+   after its patch embeddings): prefill of 125 tokens and 3 chained decode
+   steps against the forward's logits (atol = rtol = 2e-3), and the reduced
+   configs on the card against the CPU (logits, aux, prefill caches, loss
+   and every gradient within 1e-4); (15b) in bfloat16 at full depth: phase
+   7b's 8 prompts of 512 tokens prefilled twice (bitwise), then 63 greedy
+   decode steps against caches of 576 positions (internvl2-1b's 832);
+   prefill and per-step times beside 7b's bounds, kernels per call and idle
+   share, peak memory, each with the card's name and power limit; logits
+   finite, tokens inside the vocabulary.  The phase launches neither kernel.
 
 There is no CPU fallback.
 
@@ -346,6 +360,18 @@ EP_RANKS, EP_DECODE_STEPS, EP_TIMEOUT = 4, 15, 400
 DRYRUN_PEAK_TOL, DRYRUN_FLOPS_TOL, DRYRUN_TIMEOUT = 0.10, 0.01, 300
 DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("deepseek-v2-236b", "decode_32k"),
                 ("mamba2-2.7b", "long_500k"))  # fmt: skip
+#: the dense serving phase (15), the four configs phases 7-14 left out, at
+#: their published widths: qwen1.5-0.5b (QKV bias), internvl2-1b (its
+#: num_prefix patch embeddings before the tokens), phi3-mini-3.8b (head_dim
+#: 96, 32 KV heads), yi-34b (56 query heads over 8 KV heads).  15a: float32
+#: with TF32 off, the depth cut to DENSE_EQ_LAYERS, LM_EQ_BATCH prompts of
+#: LM_EQ_SEQ tokens, prefill of all but DENSE_EQ_STEPS tokens then that many
+#: chained decode steps against the forward within LM_EQUIV_TOL; the reduced
+#: configs card against CPU within DENSE_CPU_TOL (logits, aux, prefill
+#: caches, loss, every gradient).  15b: bf16 at full depth, phase 7b's
+#: LM_BATCH prompts of LM_PROMPT tokens and LM_NEW new tokens
+DENSE_ARCHS = ("qwen1.5-0.5b", "internvl2-1b", "phi3-mini-3.8b", "yi-34b")
+DENSE_EQ_LAYERS, DENSE_EQ_STEPS, DENSE_CPU_TOL = 2, 3, 1e-4
 #: the bucket histogram's shapes (phase 3b): the main path's 1M walks,
 #: padded to the tile, over its 16 blocks and two larger bucket counts
 HIST_N, HIST_NBS = 1_048_576, (16, 4096, 65536)
@@ -2037,16 +2063,25 @@ def _cut(cfg, segments, **change):
                                segments=segments, **change)  # fmt: skip
 
 
+def _prefix_len(cfg) -> int:
+    """The positions a VLM's patch embeddings take before the tokens."""
+    return cfg.num_prefix if cfg.frontend == "vision" else 0
+
+
 def _lm_batch(cfg, n: int, seq: int, frames: int, dev) -> dict:
-    """``n`` prompts of ``seq`` tokens from ``default_rng(0)`` (phase 7b's),
-    and for the encoder-decoder ``n`` clips of ``frames`` frame embeddings
-    drawn after them (``examples/serve_lm.py``'s order)."""
+    """``n`` prompts of ``seq`` tokens from ``default_rng(0)`` (phase 7b's);
+    drawn after them, for a VLM ``n`` x ``num_prefix`` patch embeddings
+    (tests/test_torch_lm.py's order), for the encoder-decoder ``n`` clips of
+    ``frames`` frame embeddings (``examples/serve_lm.py``'s order)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(0)
     toks = rng.integers(1, cfg.vocab_size, (n, seq)).astype(np.int32)
     batch = {"tokens": torch.as_tensor(toks, device=dev)}
+    if cfg.frontend == "vision":
+        prefix = rng.standard_normal((n, cfg.num_prefix, cfg.d_model)).astype(np.float32)
+        batch["prefix"] = torch.as_tensor(prefix, device=dev)
     if cfg.is_encoder_decoder:
         clips = rng.standard_normal((n, frames, cfg.d_model)).astype(np.float32)
         batch["frames"] = torch.as_tensor(clips, device=dev)
@@ -2056,25 +2091,27 @@ def _lm_batch(cfg, n: int, seq: int, frames: int, dev) -> dict:
 def _decode_vs_forward(cfg, params, batch, steps: int, enc_len: int = 0) -> dict:
     """Prefill of all but the last ``steps`` tokens of ``batch``, then
     ``steps`` chained decode steps, each step's logits against the
-    forward's at its position within LM_EQUIV_TOL; ``dropped`` counts the
-    MoE assignments past capacity over all of it."""
+    forward's at its position within LM_EQUIV_TOL (a VLM's token ``t`` sits
+    at cache position ``t + num_prefix``); ``dropped`` counts the MoE
+    assignments past capacity over all of it."""
     from repro_torch.models import model_caches, model_decode, model_forward, model_prefill
     from repro_torch.models.common import tree_map
 
     toks = batch["tokens"]
     n, seq = toks.shape
-    first = seq - steps
+    first, prefix = seq - steps, _prefix_len(cfg)
     with _Routes() as routes:
         want = model_forward(params, batch, cfg)[0]
         _, caches = model_prefill(params, dict(batch, tokens=toks[:, :first]), cfg)
-        target = model_caches(cfg, n, seq + 4, enc_len=enc_len, device=toks.device)
+        target = model_caches(cfg, n, prefix + seq + 4, enc_len=enc_len, device=toks.device)
         caches = tree_map(_lm_pad, caches, target)
         gaps = []
         for t in range(first, seq):
-            got, _ = model_decode(params, toks[:, t : t + 1], caches, t, cfg)
+            got, _ = model_decode(params, toks[:, t : t + 1], caches, prefix + t, cfg)
             gaps.append(dict(_lm_logits_gap(got, want[:, t], LM_EQUIV_TOL), position=t))
     return dict(
-        layers=cfg.n_layers, encoder_layers=cfg.n_encoder_layers, prompt=first, steps=gaps,
+        layers=cfg.n_layers, encoder_layers=cfg.n_encoder_layers, prefix=prefix, prompt=first,
+        steps=gaps,
         ok=all(g["ok"] for g in gaps), dropped=sum(_dropped(i, cfg) for i in routes.calls),
     )  # fmt: skip
 
@@ -2152,7 +2189,9 @@ def _serve_lm(cfg, dev, *, tag: str, phase: str, prompt: int, bounds, describe: 
     """Phases 11b, 12b and 13a for one config: made on the card (or
     ``params``, made by the caller), LM_BATCH prompts
     of ``prompt`` tokens (``_lm_batch``; the encoder-decoder's over
-    REC_FRAMES frames) prefilled twice, then LM_NEW - 1 greedy decode steps
+    REC_FRAMES frames, a VLM's after its patch embeddings, which take the
+    caches' first ``num_prefix`` positions) prefilled twice, then LM_NEW - 1
+    greedy decode steps
     timed with CUDA events, and the card's busy time under torch.profiler.
     ``bounds(params, caches, prefill_ids, decode_ids)``, given the MoE
     layers' top-k ids of the first prefill and the first decode step,
@@ -2169,6 +2208,7 @@ def _serve_lm(cfg, dev, *, tag: str, phase: str, prompt: int, bounds, describe: 
     from repro_torch.train import make_decode_step, make_prefill_step
 
     enc_len = REC_FRAMES if cfg.is_encoder_decoder else 0
+    prefix = _prefix_len(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2207,7 +2247,8 @@ def _serve_lm(cfg, dev, *, tag: str, phase: str, prompt: int, bounds, describe: 
         torch.equal(a, b) for a, b in zip(tree_leaves(pcaches), tree_leaves(pcaches2))
     )
     del results, logits2, pcaches2
-    max_len = prompt + LM_NEW
+    first_pos = prefix + prompt
+    max_len = first_pos + LM_NEW
     target = model_caches(cfg, LM_BATCH, max_len, enc_len=enc_len, device=dev)
     caches = tree_map(_lm_pad, pcaches, target)
     del pcaches, target
@@ -2218,7 +2259,7 @@ def _serve_lm(cfg, dev, *, tag: str, phase: str, prompt: int, bounds, describe: 
     seq, marks = [tok], []
     t0 = time.perf_counter()
     for i in range(LM_NEW - 1):
-        step = {"token": tok, "cache_len": prompt + i}
+        step = {"token": tok, "cache_len": first_pos + i}
         start, stop = ev(), ev()
         with _Routes() if i == 0 else contextlib.nullcontext() as routes:
             start.record()
@@ -2245,7 +2286,8 @@ def _serve_lm(cfg, dev, *, tag: str, phase: str, prompt: int, bounds, describe: 
     serve = dict(
         arch=cfg.name, dtype=str(cfg.dtype), layers=cfg.n_layers,
         encoder_layers=cfg.n_encoder_layers, params=n_params, weight_bytes=weight_bytes,
-        batch=LM_BATCH, prompt=prompt, frames=enc_len, new_tokens=LM_NEW, cache_len=max_len,
+        batch=LM_BATCH, prompt=prompt, frames=enc_len, prefix=prefix,
+        new_tokens=LM_NEW, cache_len=max_len,
         init_s=init_s, init_peak=init_peak, prefill_first_ms=prefill_ms[0],
         prefill_ms=prefill_ms[1], prefill_tokens_per_s=LM_BATCH * prompt / (prefill_ms[1] / 1e3),
         prefill_flops=b["flops"], prefill_bound_ms=b["flops"] / BF16_FLOPS_PER_S * 1e3,
@@ -2258,7 +2300,9 @@ def _serve_lm(cfg, dev, *, tag: str, phase: str, prompt: int, bounds, describe: 
         decode_idle_share=1 - busy["decode"]["device_ms"] / median, **b["extra"],
     )  # fmt: skip
     log(f"[{tag}] {phase} {cfg.name} prefill {LM_BATCH} x {prompt} tokens"
-        f"{f' over {enc_len} frames' if enc_len else ''}: {prefill_ms[1]:.3f} ms (first call "
+        f"{f' over {enc_len} frames' if enc_len else ''}"
+        f"{f' after {prefix} patch embeddings' if prefix else ''}: "
+        f"{prefill_ms[1]:.3f} ms (first call "
         f"{prefill_ms[0]:.3f} ms), {serve['prefill_tokens_per_s']:,.0f} tokens/s; bound "
         f"{serve['prefill_bound_ms']:.3f} ms = {b['flops_note']} / {BF16_FLOPS_PER_S:.3g} "
         f"FLOP/s; second prefill bitwise equal: {bitwise}")  # fmt: skip
@@ -2561,6 +2605,108 @@ def phase_lm_recurrent(dev):
     out["12b"]["bucket_hist_launches"] = bucket_hist_kernel.launches
     log(f"[lm-rec] phase 12: {time.perf_counter() - t_phase:.1f}s; kernel launches: pair_advance "
         f"{out['12b']['launches']}, bucket_hist {out['12b']['bucket_hist_launches']}")  # fmt: skip
+    return out
+
+
+def _dense_equivalence(arch, dev) -> dict:
+    """15a for one arch: decode against forward at the published widths in
+    float32 (the depth cut to DENSE_EQ_LAYERS), then the reduced config
+    card against CPU."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import model_init
+
+    cfg = _cut(get_config(arch), ((("attn+mlp",), DENSE_EQ_LAYERS),), dtype=torch.float32)
+    params = model_init(0, cfg, device=dev)
+    batch = _lm_batch(cfg, LM_EQ_BATCH, LM_EQ_SEQ, 0, dev)
+    out = {"decode_vs_forward": _decode_vs_forward(cfg, params, batch, DENSE_EQ_STEPS)}
+    log(f"[lm-dense] 15a {cfg.name} float32, decode vs forward (batch {LM_EQ_BATCH}, "
+        f"{_prefix_len(cfg)} patch embeddings + {LM_EQ_SEQ} tokens, {DENSE_EQ_STEPS} chained "
+        f"steps): {json.dumps(out['decode_vs_forward'])}")  # fmt: skip
+    del params, batch
+    torch.cuda.empty_cache()
+
+    cfg = reduced_config(arch)
+    params = model_init(0, cfg, device=dev)
+    batch = _train_batch(cfg, LM_EQ_BATCH, LM_EQ_SEQ, dev)
+    if cfg.frontend == "vision":
+        batch["prefix"] = _lm_batch(cfg, LM_EQ_BATCH, 1, 0, dev)["prefix"]
+    out["reduced_card_vs_cpu"] = _card_vs_cpu(cfg, params, batch, DENSE_CPU_TOL, caches=True)
+    log(f"[lm-dense] 15a {cfg.name} card vs CPU (float32; logits, aux, prefill caches, loss, "
+        f"every gradient): {json.dumps(out['reduced_card_vs_cpu'])}")  # fmt: skip
+    return out
+
+
+def _dense_serve(arch, dev, card: str) -> dict:
+    """15b for one arch: bf16 at the published widths and depth; phase 7b's
+    prompts (a VLM's after its patch embeddings) and steps.  Bounds as 7b's:
+    the prefill 2 x params x the positions it runs, the decode step every
+    weight and the mean step's KV cache."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    prefix = _prefix_len(cfg)
+
+    def bounds(params, caches, prefill_ids, decode_ids):
+        n_params, weight_bytes = cfg.param_count(), _nbytes(params)
+        positions = LM_BATCH * (prefix + LM_PROMPT)
+        kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * cfg.dtype.itemsize
+        kv_bytes = LM_BATCH * kv_row * (prefix + LM_PROMPT + (LM_NEW - 1) / 2 + 1)
+        return dict(
+            flops=2 * n_params * positions,
+            flops_note=f"2 x {n_params:,} params x {positions} positions (attention's own FLOPs "
+            "left out)",
+            decode_bytes=weight_bytes + kv_bytes,
+            decode_note=f"{weight_bytes:,} weight bytes + {kv_bytes:,.0f} KV cache bytes, the "
+            "mean step's",
+            extra=dict(decode_kv_bytes_mean=kv_bytes, card=card), lines=[],
+        )  # fmt: skip
+
+    describe = (f", GQA {cfg.n_heads}/{cfg.n_kv_heads} of head_dim {cfg.head_dim}, vocab "
+                f"{cfg.vocab_size}{', QKV bias' if cfg.qkv_bias else ''}"
+                f"{f', {prefix} prefix patch embeddings' if prefix else ''}")  # fmt: skip
+    out = _serve_lm(cfg, dev, tag="lm-dense", phase="15b", prompt=LM_PROMPT, bounds=bounds,
+                    describe=describe)  # fmt: skip
+    log(f"[lm-dense] 15b {cfg.name} {cfg.dtype} {cfg.n_layers} layers: prefill "
+        f"{out['prefill_ms']:.3f} ms (bound {out['prefill_bound_ms']:.3f}), decode median "
+        f"{out['decode_ms_median']:.3f} "
+        f"ms (bound {out['decode_bound_ms']:.4f}), peak {out['max_memory_allocated']:,} bytes "
+        f"| {card}")  # fmt: skip
+    return out
+
+
+def phase_lm_dense(dev):
+    """Phase 15: serving qwen1.5-0.5b, internvl2-1b (the VLM prefix),
+    phi3-mini-3.8b and yi-34b at their published widths (15a equivalence in
+    float32, 15b serving in bfloat16 at full depth)."""
+    import torch
+
+    from repro_torch.kernels.bucket_hist import bucket_hist_kernel
+    from repro_torch.kernels.pair_advance import fused_advance_pair
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    card = card_line()
+    log(f"[lm-dense] phase 15 starts with {torch.cuda.memory_allocated():,} bytes allocated on "
+        f"the card | {card}")  # fmt: skip
+    out = {"15a": {arch: _dense_equivalence(arch, dev) for arch in DENSE_ARCHS}}
+    for arch, eq in out["15a"].items():
+        for key in ("decode_vs_forward", "reduced_card_vs_cpu"):
+            if not eq[key]["ok"]:
+                raise AssertionError(f"phase 15a {arch}: {key} outside its tolerance: {eq[key]}")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    fused_advance_pair.launches = 0
+    bucket_hist_kernel.launches = 0
+    out["15b"] = {arch: _dense_serve(arch, dev, card) for arch in DENSE_ARCHS}
+    out["15b"]["launches"] = fused_advance_pair.launches
+    out["15b"]["bucket_hist_launches"] = bucket_hist_kernel.launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lm-dense] phase 15: {out['phase_s']:.1f}s; kernel launches: pair_advance "
+        f"{out['15b']['launches']}, bucket_hist {out['15b']['bucket_hist_launches']} "
+        f"| {card}")  # fmt: skip
     return out
 
 
@@ -3232,12 +3378,14 @@ def main(argv=None) -> int:
     lm_rec = phase_lm_recurrent(dev)
     lm_ep = phase_lm_ep(dev, args.src)
     dryrun = phase_dryrun(dev)
+    lm_dense = phase_lm_dense(dev)
     # ``launches`` counts the main paths only: the walk launcher, the
     # full-size hot-set server, LM serving and LM training (which run
     # neither kernel), the train launcher (its corpus's advances), the
     # distributed engine at full size (10a), MoE / MLA serving (11b), SSD /
     # RG-LRU / encoder-decoder serving (12b), expert-parallel MoE serving
-    # (13a) and the dry run's real steps (14a), neither kernel; the LRU
+    # (13a), the dry run's real steps (14a) and the last four dense configs
+    # (15b), neither kernel; the LRU
     # server, the launcher at its small defaults and the 4-rank gloo runs
     # (10b, 13b) are listed beside them in ``launches_by_path``
     def by_path(key):
@@ -3248,7 +3396,8 @@ def main(argv=None) -> int:
                 "lm serve moe/mla": lm_moe["11b"][key],
                 "lm serve ssm/rglru/encdec": lm_rec["12b"][key],
                 "lm serve moe ep": lm_ep["13a"][key],
-                "lm dry-run check": dryrun["14a"][key]}  # fmt: skip
+                "lm dry-run check": dryrun["14a"][key],
+                "lm serve qwen/internvl/phi3/yi": lm_dense["15b"][key]}  # fmt: skip
         other = {"serve lru": serving["6b"]["lru"][key], "serve launcher": serving["6c"][key],
                  f"distributed {DIST_RANKS} ranks (gloo)": distributed["10b"][key],
                  f"moe ep {EP_RANKS} ranks (gloo)": lm_ep["13b"][key]}  # fmt: skip
@@ -3284,7 +3433,7 @@ def main(argv=None) -> int:
         card=card, build_s=build_s, variants=rows, bucket_hist=hist, kernel_tier=tier,
         whole_run=whole, other_engines=engines, main_runs=phases, serve=serving, lm=lm,
         lm_train=lm_train, lm_harness=harness, distributed=distributed, lm_moe=lm_moe,
-        lm_recurrent=lm_rec, lm_ep=lm_ep, dryrun=dryrun, total_s=elapsed(),
+        lm_recurrent=lm_rec, lm_ep=lm_ep, dryrun=dryrun, lm_dense=lm_dense, total_s=elapsed(),
     ), indent=1))  # fmt: skip
     log(f"[done] {elapsed():.1f}s")
     log(card)

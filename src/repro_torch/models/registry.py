@@ -64,10 +64,9 @@ def model_forward(params, batch: Dict[str, Any], cfg: ModelConfig):
     if cfg.is_encoder_decoder:
         return encdec.encdec_forward(params, batch["frames"], batch["tokens"], cfg)
     prefix = batch.get("prefix")
-    logits, aux = transformer.forward(params, batch["tokens"], cfg, prefix_embeds=prefix)
-    if prefix is not None:
-        logits = logits[:, prefix.shape[1] :]  # labels align with tokens
-    return logits, aux
+    if prefix is not None:  # labels align with tokens
+        return transformer._token_logits(params, batch["tokens"], prefix, cfg)
+    return transformer.forward(params, batch["tokens"], cfg)
 
 
 def model_prefill(params, batch: Dict[str, Any], cfg: ModelConfig):

@@ -253,18 +253,35 @@ def _logits(params, x, cfg: ModelConfig):
     return linear(x, head)
 
 
+def _hidden(params, tokens, cfg: ModelConfig, *, prefix_embeds=None, collect_cache: bool = False):
+    """``forward`` up to the final norm: (hidden [B, S(+P), D], caches, aux)."""
+    x = embed_lookup(params["embed"], tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    x = constrain(x, "residual")
+    return _run_segments(params, x, cfg, collect_cache=collect_cache)
+
+
+def _token_logits(params, tokens, prefix_embeds, cfg: ModelConfig):
+    """``forward``'s logits over the token positions only (the [vlm]
+    prefix's rows leave before the head) and aux.  The same values as
+    slicing ``forward``'s logits; on a sequence-split DTensor the slice
+    moves [B, S+P, D] hidden rows, not [B, S+P, vocab] logits."""
+    x, _, aux = _hidden(params, tokens, cfg, prefix_embeds=prefix_embeds)
+    x = constrain(x[:, prefix_embeds.shape[1] :], "residual")
+    return constrain(_logits(params, x, cfg), "logits"), aux
+
+
 def forward(params, tokens, cfg: ModelConfig, *, prefix_embeds=None, collect_cache: bool = False):
     """tokens: [B, S] -> logits [B, S(+P), vocab_padded].
 
     ``prefix_embeds`` ([B, P, D], the [vlm] frontend stub output) is
     prepended to the token embeddings; logits cover the full sequence, the
-    caller slices the token region.
+    caller slices the token region (``_token_logits`` slices before the
+    head).
     """
-    x = embed_lookup(params["embed"], tokens)
-    if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-    x = constrain(x, "residual")
-    x, caches, aux = _run_segments(params, x, cfg, collect_cache=collect_cache)
+    x, caches, aux = _hidden(params, tokens, cfg, prefix_embeds=prefix_embeds,
+                             collect_cache=collect_cache)  # fmt: skip
     logits = constrain(_logits(params, x, cfg), "logits")
     if collect_cache:
         return logits, caches, aux

@@ -30,6 +30,7 @@ subprocesses started together when the file starts; every wait is bounded.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -428,6 +429,35 @@ def test_counts_are_per_device(fake_world, product):
     assert counted[True][1] * 4 == counted[False][1]  # the bytes the product left live
     assert counted[False][1] == 8 * 64 * 512 * 4
     assert counted[True][2] * 4 == counted[False][2]
+
+
+def test_vlm_prefix_leaves_before_the_head(fake_world, monkeypatch):
+    """The reduced internvl2-1b's train step at train_4k's shape on the fake
+    (16, 16) mesh, the residual split over the sequence on ``model``: no
+    all-gather's output is logits over the whole sequence (last dim the
+    padded vocabulary, at least the S - P token rows).  Slicing the prefix
+    off the logits made DTensor gather them over the sequence."""
+    from repro_torch.configs import SHAPES, reduced_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg, spec = reduced_config("internvl2-1b"), SHAPES["train_4k"]
+    gathered = []
+    collective = dryrun._Tally._collective
+
+    def recorded(self, name, op, args, kwargs, out):
+        if name == "all-gather":
+            gathered.extend(tuple(t.shape) for t in dryrun._tensors(out))
+        return collective(self, name, op, args, kwargs, out)
+
+    monkeypatch.setattr(dryrun._Tally, "_collective", recorded)
+    fake_world(256)
+    mesh = make_production_mesh(device_type="cpu")
+    rec = dryrun._estimate(cfg, spec, mesh, device_type="cpu")
+    assert rec["collectives"]["all-gather"] == len(gathered) > 0
+    rows = spec.seq_len - cfg.num_prefix
+    whole = [s for s in gathered if s[-1] == cfg.vocab_padded and math.prod(s) // s[-1] >= rows]
+    assert whole == []
 
 
 def test_run_cell_record_artifact_run_all_and_main(fake_world, monkeypatch, tmp_path, capsys):
