@@ -30,6 +30,7 @@ import numpy as np
 
 import torch
 
+from repro_torch.core import spans
 from repro_torch.core.graph import BlockedGraph, BlockView, block_of
 from repro_torch.core.stats import SSD, DevicePreset, IOStats
 from repro_torch.core.transition import Node2vec, WalkTask
@@ -229,118 +230,120 @@ class EngineBase:
         on_retire: Optional[Callable[[np.ndarray, np.ndarray], None]] = None,
         hot_blocks=None,
     ):
-        self.bg = bg
-        self.task = task
-        # the serving seams: a query front end (repro.serve) passes a shared
-        # IOStats + BlockStore so charges (and the hot-set pinning savings)
-        # accumulate across the engine runs it drives, injects the admitted
-        # queries' walk sources as `initial_walks`, and observes per-walk
-        # terminations through `on_retire` to attribute endpoints per query
-        if stats is None and block_store is not None:
-            stats = block_store.stats
-        self.stats = IOStats(preset) if stats is None else stats
-        if block_store is not None and block_store.stats is not self.stats:
-            raise ValueError(
-                "a shared block_store must charge through the engine's IOStats "
-                "(pass the store's stats, or no stats at all)"
+        with spans.span("engine.init"):
+            self.bg = bg
+            self.task = task
+            # the serving seams: a query front end (repro.serve) passes a shared
+            # IOStats + BlockStore so charges (and the hot-set pinning savings)
+            # accumulate across the engine runs it drives, injects the admitted
+            # queries' walk sources as `initial_walks`, and observes per-walk
+            # terminations through `on_retire` to attribute endpoints per query
+            if stats is None and block_store is not None:
+                stats = block_store.stats
+            self.stats = IOStats(preset) if stats is None else stats
+            if block_store is not None and block_store.stats is not self.stats:
+                raise ValueError(
+                    "a shared block_store must charge through the engine's IOStats "
+                    "(pass the store's stats, or no stats at all)"
+                )
+            self.on_retire = on_retire
+            self.record_walks = record_walks
+            self.k_max = k_max if isinstance(task.model, Node2vec) else 1
+            if isinstance(task.model, Node2vec) and task.model.p == task.model.q == 1.0:
+                self.k_max = 1  # acceptance prob is exactly 1 — no rejection needed
+            self.pool_flush_walks = pool_flush_walks
+            self.seed = task.seed if seed is None else seed
+            self.order = task.model.order
+            # backend-neutral surface: works for the in-RAM BlockedGraph and the
+            # file-backed repro.io.DiskBlockedGraph alike
+            self.has_alias = bg.has_weights
+            if self.has_alias:
+                bg.ensure_alias()
+            self.n_iters = int(np.ceil(np.log2(max(bg.max_block_edges, 2)))) + 2
+            # the advance: "cuda" (the fused multi-hop kernel,
+            # repro_torch.kernels.pair_advance, whose wrapper takes the plain
+            # version for CPU tensors) or "torch" (the plain version itself) —
+            # both draw through the same threefry, so their walks are identical
+            if advance_impl not in ("cuda", "torch"):
+                raise ValueError(f"advance_impl must be 'cuda' or 'torch', got {advance_impl!r}")
+            self.advance_impl = advance_impl
+            self.device = resolve_device(device)
+            self.advance_calls = 0
+            # counter-based RNG: one fixed base key (jax.random.PRNGKey(seed)'s
+            # raw halves); draws are keyed per (walk id, hop), never per call
+            self._base_key = rng.key_halves(self.seed)
+            V = bg.num_vertices
+            self.endpoint_counts = np.zeros(V, np.int64)
+            if initial_walks is None:
+                src = task.initial_walks(V)
+            else:
+                src = np.asarray(initial_walks, dtype=np.int64)
+            self.num_walks = src.shape[0]
+            self.corpus = (
+                np.full((self.num_walks, task.length + 1), -1, np.int32)
+                if record_walks
+                else None
             )
-        self.on_retire = on_retire
-        self.record_walks = record_walks
-        self.k_max = k_max if isinstance(task.model, Node2vec) else 1
-        if isinstance(task.model, Node2vec) and task.model.p == task.model.q == 1.0:
-            self.k_max = 1  # acceptance prob is exactly 1 — no rejection needed
-        self.pool_flush_walks = pool_flush_walks
-        self.seed = task.seed if seed is None else seed
-        self.order = task.model.order
-        # backend-neutral surface: works for the in-RAM BlockedGraph and the
-        # file-backed repro.io.DiskBlockedGraph alike
-        self.has_alias = bg.has_weights
-        if self.has_alias:
-            bg.ensure_alias()
-        self.n_iters = int(np.ceil(np.log2(max(bg.max_block_edges, 2)))) + 2
-        # the advance: "cuda" (the fused multi-hop kernel,
-        # repro_torch.kernels.pair_advance, whose wrapper takes the plain
-        # version for CPU tensors) or "torch" (the plain version itself) —
-        # both draw through the same threefry, so their walks are identical
-        if advance_impl not in ("cuda", "torch"):
-            raise ValueError(f"advance_impl must be 'cuda' or 'torch', got {advance_impl!r}")
-        self.advance_impl = advance_impl
-        self.device = resolve_device(device)
-        self.advance_calls = 0
-        # counter-based RNG: one fixed base key (jax.random.PRNGKey(seed)'s
-        # raw halves); draws are keyed per (walk id, hop), never per call
-        self._base_key = rng.key_halves(self.seed)
-        V = bg.num_vertices
-        self.endpoint_counts = np.zeros(V, np.int64)
-        if initial_walks is None:
-            src = task.initial_walks(V)
-        else:
-            src = np.asarray(initial_walks, dtype=np.int64)
-        self.num_walks = src.shape[0]
-        self.corpus = (
-            np.full((self.num_walks, task.length + 1), -1, np.int32)
-            if record_walks
-            else None
-        )
-        if record_walks:
-            self.corpus[:, 0] = src
-        # the storage layer: walk pool ("disk" tier) + block store; with the
-        # async pipeline the pool persists through a sequenced writer thread
-        # (ticketed pushes — serial state sequence, off the critical path),
-        # and pool_shards > 1 partitions the keyspace across that many
-        # writers (one AsyncWalkPool-wrapped backend per shard)
-        self.async_pipeline = bool(async_pipeline)
-        self.writer_queue = writer_queue
-        self.pool_shards = max(int(pool_shards), 1)
-        if self.pool_shards > 1 and not self.async_pipeline:
-            raise ValueError(
-                "pool_shards > 1 requires the async pipeline: shards are "
-                "per-shard sequenced writers (the serial reference mode has none)"
-            )
-        if self.pool_shards > 1 and not isinstance(pool, (str, ShardedWalkPool)):
-            raise ValueError(
-                "pool_shards > 1 needs a backend name (or a prebuilt ShardedWalkPool); "
-                "a plain pool instance cannot be partitioned after construction"
-            )
-        if self.pool_shards > 1 and isinstance(pool, str):
-            self.pool: WalkPool = ShardedWalkPool(
-                pool,
-                num_shards=self.pool_shards,
-                num_blocks=bg.num_blocks,
-                stats=self.stats,
-                block_starts=bg.block_starts,
-                flush_walks=pool_flush_walks,
-                directory=pool_dir,
-                max_queue=writer_queue,
-            )
-        else:
-            self.pool = make_walk_pool(
-                pool,
-                num_blocks=bg.num_blocks,
-                stats=self.stats,
-                block_starts=bg.block_starts,
-                flush_walks=pool_flush_walks,
-                directory=pool_dir,
-            )
-            if self.async_pipeline and not isinstance(self.pool, (AsyncWalkPool, ShardedWalkPool)):
-                self.pool = AsyncWalkPool(self.pool, stats=self.stats, max_queue=writer_queue)
-        if block_store is not None:
-            self.blocks = block_store
-            self._owns_blocks = False
-        else:
-            self.blocks = BlockStore(
-                bg,
-                self.stats,
-                enable_prefetch=prefetch,
-                capacity=max(block_cache_blocks, 2),
-            )
-            self._owns_blocks = True
-        if hot_blocks is not None:
-            self.blocks.pin(hot_blocks)
-        self._pending_init_src = src
-        self.unfinished = self.num_walks
-        self.pair = ResidentPair(bg, self.has_alias, self.stats, self.device)
-        self._closed = False
+            if record_walks:
+                self.corpus[:, 0] = src
+            # the storage layer: walk pool ("disk" tier) + block store; with the
+            # async pipeline the pool persists through a sequenced writer thread
+            # (ticketed pushes — serial state sequence, off the critical path),
+            # and pool_shards > 1 partitions the keyspace across that many
+            # writers (one AsyncWalkPool-wrapped backend per shard)
+            self.async_pipeline = bool(async_pipeline)
+            self.writer_queue = writer_queue
+            self.pool_shards = max(int(pool_shards), 1)
+            if self.pool_shards > 1 and not self.async_pipeline:
+                raise ValueError(
+                    "pool_shards > 1 requires the async pipeline: shards are "
+                    "per-shard sequenced writers (the serial reference mode has none)"
+                )
+            if self.pool_shards > 1 and not isinstance(pool, (str, ShardedWalkPool)):
+                raise ValueError(
+                    "pool_shards > 1 needs a backend name (or a prebuilt ShardedWalkPool); "
+                    "a plain pool instance cannot be partitioned after construction"
+                )
+            if self.pool_shards > 1 and isinstance(pool, str):
+                self.pool: WalkPool = ShardedWalkPool(
+                    pool,
+                    num_shards=self.pool_shards,
+                    num_blocks=bg.num_blocks,
+                    stats=self.stats,
+                    block_starts=bg.block_starts,
+                    flush_walks=pool_flush_walks,
+                    directory=pool_dir,
+                    max_queue=writer_queue,
+                )
+            else:
+                self.pool = make_walk_pool(
+                    pool,
+                    num_blocks=bg.num_blocks,
+                    stats=self.stats,
+                    block_starts=bg.block_starts,
+                    flush_walks=pool_flush_walks,
+                    directory=pool_dir,
+                )
+                sequenced = isinstance(self.pool, (AsyncWalkPool, ShardedWalkPool))
+                if self.async_pipeline and not sequenced:
+                    self.pool = AsyncWalkPool(self.pool, stats=self.stats, max_queue=writer_queue)
+            if block_store is not None:
+                self.blocks = block_store
+                self._owns_blocks = False
+            else:
+                self.blocks = BlockStore(
+                    bg,
+                    self.stats,
+                    enable_prefetch=prefetch,
+                    capacity=max(block_cache_blocks, 2),
+                )
+                self._owns_blocks = True
+            if hot_blocks is not None:
+                self.blocks.pin(hot_blocks)
+            self._pending_init_src = src
+            self.unfinished = self.num_walks
+            self.pair = ResidentPair(bg, self.has_alias, self.stats, self.device)
+            self._closed = False
 
     # -- pool plumbing ("disk" walk I/O) --------------------------------------
     @property
@@ -358,24 +361,26 @@ class EngineBase:
         wid: np.ndarray,
         alive: np.ndarray,
     ) -> Tuple[WalkBatch, np.ndarray]:
-        done = ~alive
-        if done.any():
-            ends = batch.cur[done]
-            np.add.at(self.endpoint_counts, ends, 1)
-            if self.on_retire is not None:
-                self.on_retire(wid[done], ends)
-            self.unfinished -= int(done.sum())
-        keep = alive
-        return batch.select(keep), wid[keep]
+        with spans.span("retire"):
+            done = ~alive
+            if done.any():
+                ends = batch.cur[done]
+                np.add.at(self.endpoint_counts, ends, 1)
+                if self.on_retire is not None:
+                    self.on_retire(wid[done], ends)
+                self.unfinished -= int(done.sum())
+            keep = alive
+            return batch.select(keep), wid[keep]
 
     def _record_trace(self, wid: np.ndarray, trace: np.ndarray) -> None:
         if self.corpus is None or wid.size == 0:
             return
-        cols = np.nonzero((trace >= 0).any(axis=0))[0]
-        for h in cols:
-            col = trace[:, h]
-            m = col >= 0
-            self.corpus[wid[m], h] = col[m]
+        with spans.span("advance.record"):
+            cols = np.nonzero((trace >= 0).any(axis=0))[0]
+            for h in cols:
+                col = trace[:, h]
+                m = col >= 0
+                self.corpus[wid[m], h] = col[m]
 
     # -- the device advance ------------------------------------------------------
     def _advance(self, batch: WalkBatch, wid: np.ndarray, alive: Optional[np.ndarray] = None):
@@ -383,78 +388,85 @@ class EngineBase:
         updated host batch and alive mask.  ``alive`` masks walks already
         retired in a previous round of the same bucket (mid-advance
         extensions)."""
-        n = len(batch)
-        N = pow2_pad(n)
-        # lanes padded to a power of two with alive=False; one host->device
-        # copy for the four int32 lane arrays
-        lanes = np.zeros((4, N), np.int32)
-        lanes[0, :n] = wid
-        lanes[1, :n] = batch.prev
-        lanes[2, :n] = batch.cur
-        lanes[3, :n] = batch.hop
-        alive_host = np.zeros(N, bool)
-        alive_host[:n] = True if alive is None else alive
-        lanes_dev = torch.as_tensor(lanes, device=self.device)
-        wid_dev, prev, cur, hop = lanes_dev.unbind(0)
-        alive_dev = torch.as_tensor(alive_host, device=self.device)
-        pair_args, v_iters = self.pair.device_args()
-        t0 = time.perf_counter()
-        if self.advance_impl == "cuda":
-            advance = _pair_advance.fused_advance_pair
-        else:
-            advance = pair_advance_ref
-        out = advance(
-            *pair_args,
-            wid_dev,
-            prev,
-            cur,
-            hop,
-            alive_dev,
-            self._base_key,
-            int(self.task.length),
-            float(self.task.decay),
-            float(getattr(self.task.model, "p", 1.0)),
-            float(getattr(self.task.model, "q", 1.0)),
-            order=self.order,
-            k_max=self.k_max,
-            n_iters=self.n_iters,
-            v_iters=v_iters,
-            record=self.record_walks,
-            has_alias=self.has_alias,
-            max_len=int(self.task.length),
-        )
-        # the device-to-host copies synchronise, so exec_time covers the run
-        prev_f, cur_f, hop_f, alive_f, steps, trace = (t.cpu().numpy() for t in out)
-        self.stats.exec_time += time.perf_counter() - t0
-        self.advance_calls += 1
-        self.stats.steps_sampled += int(steps)
-        if self.record_walks:
-            self._record_trace(wid, trace[:n])
-        new_batch = WalkBatch(batch.src, prev_f[:n], cur_f[:n], hop_f[:n])
-        return new_batch, alive_f[:n]
+        with spans.span("advance"):
+            with spans.span("advance.upload"):
+                n = len(batch)
+                N = pow2_pad(n)
+                # lanes padded to a power of two with alive=False; one
+                # host->device copy for the four int32 lane arrays
+                lanes = np.zeros((4, N), np.int32)
+                lanes[0, :n] = wid
+                lanes[1, :n] = batch.prev
+                lanes[2, :n] = batch.cur
+                lanes[3, :n] = batch.hop
+                alive_host = np.zeros(N, bool)
+                alive_host[:n] = True if alive is None else alive
+                lanes_dev = torch.as_tensor(lanes, device=self.device)
+                wid_dev, prev, cur, hop = lanes_dev.unbind(0)
+                alive_dev = torch.as_tensor(alive_host, device=self.device)
+                pair_args, v_iters = self.pair.device_args()
+            t0 = time.perf_counter_ns()
+            if self.advance_impl == "cuda":
+                advance = _pair_advance.fused_advance_pair
+            else:
+                advance = pair_advance_ref
+            out = advance(
+                *pair_args,
+                wid_dev,
+                prev,
+                cur,
+                hop,
+                alive_dev,
+                self._base_key,
+                int(self.task.length),
+                float(self.task.decay),
+                float(getattr(self.task.model, "p", 1.0)),
+                float(getattr(self.task.model, "q", 1.0)),
+                order=self.order,
+                k_max=self.k_max,
+                n_iters=self.n_iters,
+                v_iters=v_iters,
+                record=self.record_walks,
+                has_alias=self.has_alias,
+                max_len=int(self.task.length),
+            )
+            # the device-to-host copies synchronise, so exec_time covers the
+            # run; the "advance.exec" span is made of the same two reads
+            prev_f, cur_f, hop_f, alive_f, steps, trace = (t.cpu().numpy() for t in out)
+            t1 = time.perf_counter_ns()
+            self.stats.exec_time += (t1 - t0) * 1e-9
+            spans.add("advance.exec", t0, t1)
+            self.advance_calls += 1
+            self.stats.steps_sampled += int(steps)
+            if self.record_walks:
+                self._record_trace(wid, trace[:n])
+            new_batch = WalkBatch(batch.src, prev_f[:n], cur_f[:n], hop_f[:n])
+            return new_batch, alive_f[:n]
 
     # -- initialization stage (paper App. B step 1) -----------------------------
     def _initialize(self) -> None:
         """First-order init: advance walks inside their source block until
         they leave it or terminate, guaranteeing B(u) != B(v) for every
         persisted walk."""
-        src = self._pending_init_src
-        self._pending_init_src = None
-        wid_all = np.arange(src.shape[0], dtype=np.int64)
-        src_blocks = block_of(self.bg.block_starts, src)
-        uniq = np.unique(src_blocks)
-        for k, b in enumerate(uniq):
-            view = self.blocks.get_view(int(b), sequential=True)
-            if k + 1 < len(uniq):
-                self.blocks.prefetch(int(uniq[k + 1]))
-            self.pair.set_slot(0, view)
-            self.pair.set_slot(1, view)
-            m = src_blocks == b
-            batch = WalkBatch(src[m], src[m], src[m], np.zeros(m.sum(), np.int32))
-            wid = wid_all[m]
-            batch, alive = self._advance(batch, wid)
-            batch, wid = self._retire(batch, wid, alive)
-            self._persist(batch, wid)
+        with spans.span("init"):
+            src = self._pending_init_src
+            self._pending_init_src = None
+            wid_all = np.arange(src.shape[0], dtype=np.int64)
+            src_blocks = block_of(self.bg.block_starts, src)
+            uniq = np.unique(src_blocks)
+            for k, b in enumerate(uniq):
+                with spans.span("load"):
+                    view = self.blocks.get_view(int(b), sequential=True)
+                if k + 1 < len(uniq):
+                    self.blocks.prefetch(int(uniq[k + 1]))
+                self.pair.set_slot(0, view)
+                self.pair.set_slot(1, view)
+                m = src_blocks == b
+                batch = WalkBatch(src[m], src[m], src[m], np.zeros(m.sum(), np.int32))
+                wid = wid_all[m]
+                batch, alive = self._advance(batch, wid)
+                batch, wid = self._retire(batch, wid, alive)
+                self._persist(batch, wid)
 
     def _persist(self, batch: WalkBatch, wid: np.ndarray) -> None:
         raise NotImplementedError
@@ -466,10 +478,11 @@ class EngineBase:
         """Execute the task.  The storage layer (prefetch thread, disk-pool
         spill dirs) is released on *any* exit — including the
         convergence-guard ``RuntimeError`` — so a failed run leaks nothing."""
-        try:
-            return self._run()
-        finally:
-            self.close()
+        with spans.span("task.run"):
+            try:
+                return self._run()
+            finally:
+                self.close()
 
     def close(self) -> None:
         """Release the storage layer: the prefetch thread and any spill

@@ -36,6 +36,7 @@ from typing import Tuple
 
 import numpy as np
 
+from repro_torch.core import spans
 from repro_torch.core.buckets import push_by_block_assignment
 from repro_torch.core.graph import BlockedGraph, BlockView, block_of
 from repro_torch.core.loader import BlockLoadingModel
@@ -81,7 +82,8 @@ class BiBlockEngine(EngineBase):
     # skewed storage: persist with min(B(u), B(v)); first-order models never
     # read prev, so they use the traditional B(cur) association (§7.8)
     def _persist(self, batch: WalkBatch, wid: np.ndarray) -> None:
-        push_by_block_assignment(self.pool, self.bg.block_starts, self.order, batch, wid)
+        with spans.span("persist"):
+            push_by_block_assignment(self.pool, self.bg.block_starts, self.order, batch, wid)
 
     #: modelled in-memory cost per sampled step (feeds the LR exec component)
     STEP_COST = 2.0e-8
@@ -106,10 +108,12 @@ class BiBlockEngine(EngineBase):
         decision = self.loader.choose(i, n_bucket_walks, nv)
         eta = n_bucket_walks / max(nv, 1)
         if decision == "full":
+            spans.count("load.full")
             nbytes = 4 * (nv + 1) + 4 * int(self.bg.block_nedges[i])
             cost = self.stats.preset.seq_cost(nbytes)
             view = self.blocks.get_view(i, sequential=True)
         else:
+            spans.count("load.ondemand")
             gap = int(getattr(self.bg, "io_coalesce_gap", 0))
             sys0 = self.stats.ondemand_syscalls
             waste0 = self.stats.coalesce_waste_bytes
@@ -132,12 +136,13 @@ class BiBlockEngine(EngineBase):
         is pure); a mismatch — or a bucket grown by Alg. 2 extension in the
         meantime — just misses the prefetch cache and builds synchronously.
         """
-        nv = int(self.bg.block_nverts[i])
-        if self.loader.choose(i, len(bucket), nv) == "full":
-            self.blocks.schedule([("full", i)])
-        else:
-            s, e = self.bg.block_starts[i], self.bg.block_starts[i + 1]
-            self.blocks.schedule([("partial", i, self._bucket_activated(bucket, s, e))])
+        with spans.span("load"):
+            nv = int(self.bg.block_nverts[i])
+            if self.loader.choose(i, len(bucket), nv) == "full":
+                self.blocks.schedule([("full", i)])
+            else:
+                s, e = self.bg.block_starts[i], self.bg.block_starts[i + 1]
+                self.blocks.schedule([("partial", i, self._bucket_activated(bucket, s, e))])
 
     def _advance_on_view(
         self,
@@ -173,7 +178,8 @@ class BiBlockEngine(EngineBase):
             # first-order buckets alias the same view in both slots — keep
             # the pair deduped so the extended rows are stored once
             both = self.pair.views[0] is self.pair.views[1]
-            view = self.blocks.extend_view(view, ext)
+            with spans.span("load"):
+                view = self.blocks.extend_view(view, ext)
             seeks = self.stats.ondemand_syscalls - sys0 if gap > 0 else None
             waste = self.stats.coalesce_waste_bytes - waste0 if gap > 0 else 0
             self.stats.ondemand_load(ext.size, nbytes, seeks=seeks, waste_bytes=waste)
@@ -222,34 +228,47 @@ class BiBlockEngine(EngineBase):
     def _run_slot(self, b: int, pipe: BucketPipeline) -> None:
         """One second-order time slot: current block ``b`` resident in slot
         0, ancillary buckets through the ordered cursor in slot 1."""
-        cursor: BucketCursor = pipe.acquire_slot(b)
-        pipe.preload_slot(pipe.plan_next(b))
-        cur_view = self.blocks.get_view(b, sequential=True)
-        self.pair.set_slot(0, cur_view)
-        while True:
-            item = cursor.pop()
-            if item is None:
-                break
-            i, bucket, bwid = item
-            # the schedule already knows the next ancillary bucket:
-            # overlap its view build with this bucket's advance
-            nxt = cursor.peek()
-            if nxt is not None:
-                self._schedule_bucket_view(nxt, cursor.get(nxt)[0])
-            self.stats.bucket_executions += 1
+        with spans.span("slot", block=b):
+            cursor: BucketCursor = pipe.acquire_slot(b)
+            pipe.preload_slot(pipe.plan_next(b))
+            with spans.span("load"):
+                cur_view = self.blocks.get_view(b, sequential=True)
+            self.pair.set_slot(0, cur_view)
+            while True:
+                item = cursor.pop()
+                if item is None:
+                    break
+                i, bucket, bwid = item
+                with spans.span("bucket", block=i, walks=len(bucket)):
+                    self._run_bucket(b, i, bucket, bwid, cursor)
+
+    def _run_bucket(
+        self, b: int, i: int, bucket: WalkBatch, bwid: np.ndarray, cursor: BucketCursor
+    ) -> None:
+        """Ancillary bucket ``i`` of slot ``b``: load its view, advance it,
+        retire, then route the survivors (Alg. 2): extend into a later
+        bucket of the slot or persist to the pool."""
+        # the schedule already knows the next ancillary bucket: overlap its
+        # view build with this bucket's advance
+        nxt = cursor.peek()
+        if nxt is not None:
+            self._schedule_bucket_view(nxt, cursor.get(nxt)[0])
+        self.stats.bucket_executions += 1
+        with spans.span("load") as sp:
             s, e = self.bg.block_starts[i], self.bg.block_starts[i + 1]
             activated = self._bucket_activated(bucket, s, e)
             decision, eta, cost, view = self._load_ancillary(i, len(bucket), activated)
-            self.pair.set_slot(1, view)
-            steps_before = self.stats.steps_sampled
-            bucket, alive, ext_cost = self._advance_on_view(i, bucket, bwid, view, decision)
-            cost += ext_cost
-            cost += self.STEP_COST * (self.stats.steps_sampled - steps_before)
-            self.loader.observe(i, eta, cost, decision)
-            bucket, bwid = self._retire(bucket, bwid, alive)
-            if len(bucket) == 0:
-                continue
-            # Alg. 2 routing
+            sp.set(decision=decision, eta=eta, cost=cost)
+        self.pair.set_slot(1, view)
+        steps_before = self.stats.steps_sampled
+        bucket, alive, ext_cost = self._advance_on_view(i, bucket, bwid, view, decision)
+        cost += ext_cost
+        cost += self.STEP_COST * (self.stats.steps_sampled - steps_before)
+        self.loader.observe(i, eta, cost, decision)
+        bucket, bwid = self._retire(bucket, bwid, alive)
+        if len(bucket) == 0:
+            return
+        with spans.span("route"):
             pre_blk = block_of(self.bg.block_starts, bucket.prev)
             cur_blk = block_of(self.bg.block_starts, bucket.cur)
             extend = (
@@ -257,8 +276,10 @@ class BiBlockEngine(EngineBase):
                 if self.bucket_extending
                 else np.zeros(len(bucket), bool)
             )
-            # persist the non-extending walks with min-rule
-            self._persist(bucket.select(~extend), bwid[~extend])
+            # the non-extending walks persist with the min-rule (below);
+            # the cursor and the pool hold separate walks, so extending
+            # first changes neither
+            stay, stay_wid = bucket.select(~extend), bwid[~extend]
             if extend.any():
                 ext_batch = bucket.select(extend)
                 ext_wid = bwid[extend]
@@ -266,6 +287,7 @@ class BiBlockEngine(EngineBase):
                 for nb in np.unique(ext_blk):
                     m = ext_blk == nb
                     cursor.add(int(nb), ext_batch.select(m), ext_wid[m])
+        self._persist(stay, stay_wid)
 
     def _run_slot_first_order(self, b: int, pipe: BucketPipeline) -> None:
         """§7.8: first-order walks need only the current block; iteration
@@ -273,16 +295,19 @@ class BiBlockEngine(EngineBase):
         ("heavy block loads become light vertex I/Os once few walks remain").
         Both slots hold the *same* view — an on-demand slot is a compacted
         view over just the walks' current vertices."""
-        batch, wid = pipe.acquire_slot(b)
-        pipe.preload_slot(pipe.plan_next(b))
-        self.stats.bucket_executions += 1
-        decision, eta, cost, view = self._load_ancillary(b, len(batch), batch.cur)
-        self.pair.set_slot(0, view)
-        self.pair.set_slot(1, view)
-        steps_before = self.stats.steps_sampled
-        batch, alive, ext_cost = self._advance_on_view(b, batch, wid, view, decision)
-        cost += ext_cost
-        cost += self.STEP_COST * (self.stats.steps_sampled - steps_before)
-        self.loader.observe(b, eta, cost, decision)
-        batch, wid = self._retire(batch, wid, alive)
-        self._persist(batch, wid)
+        with spans.span("slot", block=b):
+            batch, wid = pipe.acquire_slot(b)
+            pipe.preload_slot(pipe.plan_next(b))
+            self.stats.bucket_executions += 1
+            with spans.span("load") as sp:
+                decision, eta, cost, view = self._load_ancillary(b, len(batch), batch.cur)
+                sp.set(decision=decision, eta=eta, cost=cost)
+            self.pair.set_slot(0, view)
+            self.pair.set_slot(1, view)
+            steps_before = self.stats.steps_sampled
+            batch, alive, ext_cost = self._advance_on_view(b, batch, wid, view, decision)
+            cost += ext_cost
+            cost += self.STEP_COST * (self.stats.steps_sampled - steps_before)
+            self.loader.observe(b, eta, cost, decision)
+            batch, wid = self._retire(batch, wid, alive)
+            self._persist(batch, wid)

@@ -40,6 +40,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core import spans
 from repro_torch.core.buckets import split_into_buckets
 from repro_torch.core.scheduler import TimeSlotPlan
 from repro_torch.core.stats import IOStats
@@ -167,15 +168,16 @@ class BucketPipeline:
         thread, overlapping the current slot's advance."""
         if b is None or b in self._preloads or self.pool.counts[b] <= 0:
             return
-        if not self.enabled:
-            if self.order == 1:
-                # the serial first-order engine already prefetched the next
-                # current block (iteration scheduling); preserve that
-                self.blocks.schedule([("full", b)])
-            return
-        transform = self._split_transform(b) if self.order == 2 else None
-        self._preloads[b] = self.pool.drain_async(b, transform)
-        self.blocks.schedule([("full", b)])
+        with spans.span("pool"):
+            if not self.enabled:
+                if self.order == 1:
+                    # the serial first-order engine already prefetched the
+                    # next current block (iteration scheduling); preserve that
+                    self.blocks.schedule([("full", b)])
+                return
+            transform = self._split_transform(b) if self.order == 2 else None
+            self._preloads[b] = self.pool.drain_async(b, transform)
+            self.blocks.schedule([("full", b)])
 
     def _split_transform(self, b: int):
         starts = self.block_starts
@@ -190,18 +192,19 @@ class BucketPipeline:
         prefix (if any) plus the post-preload remainder.  Returns a
         :class:`BucketCursor` for second-order slots, a ``(batch, wid)``
         pair for first-order ones."""
-        fut = self._preloads.pop(b, None)
-        if fut is None:
-            self.stats.note_stall_slot()
-            batch, wid = self.pool.load(b)
-            return self._package(b, batch, wid, pre=None)
-        payload, _n_walks, n_spilled = fut.result()
-        self.stats.note_overlapped(n_spilled * WALK_BYTES)
-        if self.pool.counts[b] > 0:  # pushed after the preload point
-            batch, wid = self.pool.load(b)
-        else:
-            batch, wid = WalkBatch.empty(), np.zeros(0, np.int64)
-        return self._package(b, batch, wid, pre=payload)
+        with spans.span("pool"):
+            fut = self._preloads.pop(b, None)
+            if fut is None:
+                self.stats.note_stall_slot()
+                batch, wid = self.pool.load(b)
+                return self._package(b, batch, wid, pre=None)
+            payload, _n_walks, n_spilled = fut.result()
+            self.stats.note_overlapped(n_spilled * WALK_BYTES)
+            if self.pool.counts[b] > 0:  # pushed after the preload point
+                batch, wid = self.pool.load(b)
+            else:
+                batch, wid = WalkBatch.empty(), np.zeros(0, np.int64)
+            return self._package(b, batch, wid, pre=payload)
 
     def _package(self, b: int, batch: WalkBatch, wid: np.ndarray, pre):
         if self.order == 1:
@@ -226,4 +229,5 @@ class BucketPipeline:
         touched the pool again."""
         self._preloads.clear()
         if isinstance(self.pool, SEQUENCED_POOLS):
-            self.pool.barrier()
+            with spans.span("pool"):
+                self.pool.barrier()

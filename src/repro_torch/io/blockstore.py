@@ -52,7 +52,6 @@ accounting (the paper's tables) is untouched.
 from __future__ import annotations
 
 import threading
-import time
 from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, Optional
@@ -108,11 +107,6 @@ class BlockStore:
         self.partial_prefetch_hits = 0
         self.partial_builds = 0
         self.pinned_hits = 0
-        #: wall time get() spent materialising on the calling thread — the
-        #: quantity prefetch removes from the critical path
-        self.sync_materialize_time = 0.0
-        #: wall time get() spent waiting on a not-yet-finished prefetch
-        self.prefetch_wait_time = 0.0
 
     # -- internals ------------------------------------------------------------
     def _materialize(self, b: int) -> ResidentBlock:
@@ -279,15 +273,11 @@ class BlockStore:
             # first touch: materialise (joining any in-flight prefetch),
             # pay the normal block_load charge, and keep the copy pinned
             if fut is not None:
-                t0 = time.perf_counter()
                 blk = fut.result()
-                self.prefetch_wait_time += time.perf_counter() - t0
                 self.prefetch_hits += 1
                 self.stats.note_overlapped(blk.nbytes_full())
             else:
-                t0 = time.perf_counter()
                 blk = self._materialize(b)
-                self.sync_materialize_time += time.perf_counter() - t0
                 self.demand_loads += 1
             with self._lock:
                 if b in self._pinned:
@@ -298,18 +288,14 @@ class BlockStore:
                 self.stats.block_load(b, blk.nbytes_full(), sequential=sequential)
             return blk
         if fut is not None:
-            t0 = time.perf_counter()
             blk = fut.result()
-            self.prefetch_wait_time += time.perf_counter() - t0
             self.prefetch_hits += 1
             # the materialisation ran off the critical path — measure the win
             self.stats.note_overlapped(blk.nbytes_full())
         elif blk is not None:
             self.cache_hits += 1
         else:
-            t0 = time.perf_counter()
             blk = self._materialize(b)
-            self.sync_materialize_time += time.perf_counter() - t0
             self.demand_loads += 1
         self._insert(b, blk)
         if charge:
@@ -340,9 +326,7 @@ class BlockStore:
         with self._lock:
             fut = self._pfutures.pop(b, None)
         if fut is not None:
-            t0 = time.perf_counter()
             base = fut.result()
-            self.prefetch_wait_time += time.perf_counter() - t0
         if base is not None:
             in_req = np.isin(base.vids, vs)
             if in_req.all():
@@ -352,9 +336,7 @@ class BlockStore:
                 if missing.size:
                     base = self._extend(base, missing)
                 return base
-        t0 = time.perf_counter()
         view = self._build_partial(b, vs)
-        self.sync_materialize_time += time.perf_counter() - t0
         self.partial_builds += 1
         return view
 
@@ -389,8 +371,6 @@ class BlockStore:
             "partial_builds": self.partial_builds,
             "pinned_blocks": len(self._pinned),
             "pinned_hits": self.pinned_hits,
-            "sync_materialize_time": self.sync_materialize_time,
-            "prefetch_wait_time": self.prefetch_wait_time,
         }
 
     def close(self) -> None:

@@ -5,8 +5,12 @@
 
 Runs the launcher's path (:func:`repro_torch.launch.walk.main`) twice:
 
-1. under ``torch.profiler`` (CUDA activity only): device time by kernel and
-   copy, and the device's busy and idle share of the engine's time;
+1. with the engines' spans on (:mod:`repro_torch.core.spans`) and, on a
+   card, under ``torch.profiler``: each span's self time by name, the
+   loader's decisions, and on a card the device time by kernel and copy,
+   the device's busy time (the union of its intervals) and idle share of
+   the engines' time, and each idle second put down to the innermost span
+   open on this thread;
 2. under :mod:`cProfile`: the host functions with the most cumulative and
    own time.
 
@@ -24,7 +28,15 @@ import cProfile
 import io
 import json
 import pstats
+import tempfile
 import time
+from pathlib import Path
+
+from repro_torch.core import spans
+
+#: Chrome-trace categories that are work on the device
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+MARK = "profile_walk.mark"
 
 
 def _timed_main(walk_argv):
@@ -37,47 +49,122 @@ def _timed_main(walk_argv):
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     t_end = time.perf_counter()
-    return results, t_end - t0, t_end - results[0].stats.wall_start
+    return results, t0, results[0].stats.wall_start, t_end
 
 
 def _exec_s(results) -> float:
     return sum(res.stats.exec_time for res in results)
 
 
-def device_profile(walk_argv) -> dict:
-    from torch.profiler import ProfilerActivity, profile
+def merge_intervals(intervals):
+    """Sorted, disjoint union of ``(start, end)`` intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [(a, b) for a, b in out]
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        results, wall, run_s = _timed_main(walk_argv)
-    rows = []
-    busy_us = 0.0
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "cuda_time_total", 0.0)
-        if dev_us <= 0:
+
+def _device_intervals(trace_path: Path, mark_ns: int, lo: int, hi: int):
+    """Device intervals of an exported trace on ``perf_counter_ns``, cut to
+    ``[lo, hi)``, with their names."""
+    with open(trace_path) as f:
+        events = json.load(f)
+    if isinstance(events, dict):
+        events = events.get("traceEvents", [])
+    marks = [e for e in events if e.get("name") == MARK and e.get("ph") == "X"]
+    if not marks:
+        raise RuntimeError(f"the trace holds no {MARK!r} mark")
+    offset = mark_ns - float(marks[0]["ts"]) * 1e3  # trace us -> host ns
+    out = []
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
             continue
-        busy_us += dev_us
-        rows.append(dict(name=ev.key[:120], count=ev.count, device_ms=dev_us / 1e3))
+        a = float(e["ts"]) * 1e3 + offset
+        a, b = max(a, lo), min(a + float(e.get("dur", 0.0)) * 1e3, hi)
+        if b > a:
+            out.append((a, b, str(e.get("name", "?"))))
+    return out
+
+
+def _device_report(trace_path: Path, mark_ns: int, lo: int, hi: int, recorded) -> dict:
+    """Busy time as the union of the device's intervals, time by name, and
+    the idle time by innermost span."""
+    intervals = _device_intervals(trace_path, mark_ns, lo, hi)
+    by_name = {}
+    for a, b, name in intervals:
+        row = by_name.setdefault(name[:120], {"count": 0, "device_ms": 0.0})
+        row["count"] += 1
+        row["device_ms"] += (b - a) / 1e6
+    rows = [dict(name=k, **v) for k, v in by_name.items()]
     rows.sort(key=lambda r: -r["device_ms"])
+    busy = merge_intervals((a, b) for a, b, _ in intervals)
+    idle, t = [], lo
+    for a, b in busy:
+        if a > t:
+            idle.append((t, a))
+        t = b
+    if hi > t:
+        idle.append((t, hi))
+    idle_by, unspanned = spans.attribute_idle(idle, recorded)
+    idle_ns = sum(b - a for a, b in idle)
+    coarse = sum(v for k, v in idle_by.items() if k in spans.COARSE)
+    busy_s = sum(b - a for a, b in busy) / 1e9
     return dict(
-        wall_s=wall,
-        run_s=run_s,
+        device_busy_s=busy_s,
+        device_idle_share=1.0 - busy_s / ((hi - lo) / 1e9),
+        by_name=rows,
+        idle_by_span=sorted(([k, v / 1e9] for k, v in idle_by.items()), key=lambda r: -r[1]),
+        idle_unspanned_s=unspanned / 1e9,
+        # idle time that no leaf span covers: under no span or a coarse one
+        idle_unattributed_share=(unspanned + coarse) / idle_ns if idle_ns else 0.0,
+    )
+
+
+def span_profile(walk_argv, cuda: bool) -> dict:
+    """The run with spans on, under ``torch.profiler`` when ``cuda``."""
+    spans.take()
+    spans.enable()
+    try:
+        if cuda:
+            from torch.profiler import ProfilerActivity, profile, record_function
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with record_function(MARK):
+                    mark_ns = time.perf_counter_ns()
+                results, t0, t_run, t_end = _timed_main(walk_argv)
+        else:
+            results, t0, t_run, t_end = _timed_main(walk_argv)
+    finally:
+        spans.disable()
+    recorded, counts = spans.take()
+    out = dict(
+        wall_s=t_end - t0,
+        run_s=t_end - t_run,
         exec_s=_exec_s(results),
         steps=sum(res.steps_sampled for res in results),
-        device_busy_s=busy_us / 1e6,
-        device_idle_share=1.0 - busy_us / 1e6 / run_s,
-        by_name=rows,
     )
+    if cuda:
+        with tempfile.TemporaryDirectory(prefix="profile_walk_") as tmp:
+            trace_path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(trace_path))
+            lo, hi = int(t_run * 1e9), int(t_end * 1e9)
+            out["device"] = _device_report(trace_path, mark_ns, lo, hi, recorded)
+    table = sorted(spans.self_times(recorded).items(), key=lambda kv: -kv[1]["self_ns"])
+    out["spans"] = {k: {"n": v["n"], "self_s": v["self_ns"] / 1e9} for k, v in table}
+    out["counts"] = counts
+    return out
 
 
 def host_profile(walk_argv, top: int) -> dict:
     prof = cProfile.Profile()
     prof.enable()
-    results, wall, run_s = _timed_main(walk_argv)
+    results, t0, t_run, t_end = _timed_main(walk_argv)
     prof.disable()
     stats = pstats.Stats(prof)
-    out = {"wall_s": wall, "run_s": run_s, "exec_s": _exec_s(results)}
+    out = {"wall_s": t_end - t0, "run_s": t_end - t_run, "exec_s": _exec_s(results)}
     for key in ("cumulative", "tottime"):
         buf = io.StringIO()
         pstats.Stats(prof, stream=buf).sort_stats(key).print_stats(top)
@@ -94,15 +181,26 @@ def main(argv=None):
     args = ap.parse_args(argv)
     walk_argv = [a for a in args.walk_argv if a != "--"]
     report = {"walk_argv": walk_argv}
-    if "cpu" not in walk_argv:
-        report["device"] = device_profile(walk_argv)
-        d = report["device"]
+    run = span_profile(walk_argv, cuda="cpu" not in walk_argv)
+    report["spans"] = run.pop("spans")
+    report["counts"] = run.pop("counts")
+    device = run.pop("device", None)
+    if device is not None:
+        report["device"] = d = {**run, **device}
         print(
             f"[device] run {d['run_s']:.2f}s, busy {d['device_busy_s']:.3f}s, "
             f"idle share {d['device_idle_share']:.4f}"
         )
         for r in d["by_name"][:10]:
             print(f"[device] {r['device_ms']:10.3f} ms  x{r['count']:6d}  {r['name']}")
+        for name, s in d["idle_by_span"][:10]:
+            print(f"[idle] {s:10.4f} s  {name}")
+        print(f"[idle] {d['idle_unspanned_s']:10.4f} s  (no span)")
+        print(f"[idle] unattributed share {d['idle_unattributed_share']:.4f}")
+    for name, row in report["spans"].items():
+        print(f"[spans] {row['self_s']:10.4f} s  x{row['n']:7d}  {name}")
+    for name, n in sorted(report["counts"].items()):
+        print(f"[counts] {n:8d}  {name}")
     report["host"] = host_profile(walk_argv, args.top)
     print(report["host"]["cumulative"])
     print(report["host"]["tottime"])

@@ -85,17 +85,30 @@ def test_launcher_csv_matches_jax_launcher(extra, engines):
 
 def test_profile_walk_covers_every_engine_of_the_run(capsys):
     """The profiler drives the launcher's default engine list (two engines)
-    and sums their advance time."""
+    and sums their advance time, and prints the engines' span table."""
+    from repro_torch.core import spans
     from repro_torch.launch import profile_walk
 
     walk = ["--vertices", "120", "--blocks", "3", "--length", "4", *PORT]
     report = profile_walk.main(["--top", "3", "--", *walk])
-    rows = [line.split(",")[0] for line in capsys.readouterr().out.splitlines()
-            if line.startswith(("biblock,", "sogw,"))]  # fmt: skip
-    assert rows == ["biblock", "sogw"]
+    out = capsys.readouterr().out.splitlines()
+    rows = [line.split(",")[0] for line in out if line.startswith(("biblock,", "sogw,"))]
+    # one CSV block from the span run, one from the cProfile run
+    assert rows == ["biblock", "sogw"] * 2
     assert "device" not in report  # --device cpu: no device half
     assert report["host"]["exec_s"] > 0
     assert report["host"]["run_s"] >= report["host"]["exec_s"]
+    # the span table: both engines' runs, advance calls and their parts
+    table = report["spans"]
+    assert table["task.run"]["n"] == table["engine.init"]["n"] == 2
+    for name in ("advance", "advance.upload", "advance.exec", "retire", "load", "slot", "pool"):
+        assert table[name]["n"] > 0 and table[name]["self_s"] >= 0, name
+    assert table["advance.exec"]["n"] == table["advance"]["n"]
+    assert sum(report["counts"].values()) > 0  # biblock's loader decisions
+    assert set(report["counts"]) <= {"load.full", "load.ondemand"}
+    printed = {line.split()[-1] for line in out if line.startswith("[spans] ")}
+    assert printed == set(table)
+    assert spans.span("advance") is spans.NO_SPAN  # off again
 
 
 # ---------------------------------------------------------------------------
