@@ -13,6 +13,10 @@ Every out-of-core engine owns
   persist *exclusively* through it;
 * a :class:`repro.io.BlockStore` — metered, cached, prefetching access to
   graph block *views*; engines load *exclusively* through it;
+* with ``record_walks``, the corpus ``[num_walks, length + 1]`` on the
+  engine's device, written by the advance and copied back once by
+  ``result()`` (on the host, filled from each advance's trace, when it
+  does not fit the card);
 * a :class:`ResidentPair` — the two resident slots as packed device arrays
   (the "memory" tier of the paper).  Each slot holds a
   :class:`~repro.core.graph.BlockView` — a full block or a compacted
@@ -41,7 +45,7 @@ from repro_torch.kernels import rng
 
 from .step import VID_PAD, pair_advance_ref, pow2_pad, remap_search_iters
 
-__all__ = ["WalkResult", "EngineBase", "ResidentPair", "resolve_device"]
+__all__ = ["WalkResult", "EngineBase", "ResidentPair", "corpus_fits", "resolve_device"]
 
 
 def resolve_device(device) -> torch.device:
@@ -56,6 +60,16 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     return dev
+
+
+def corpus_fits(nbytes: int, device: torch.device) -> bool:
+    """Whether an engine keeps a corpus of ``nbytes`` on ``device``: always
+    on the CPU; on a card, when it takes at most half of the bytes the card
+    reports free."""
+    if device.type != "cuda":
+        return True
+    free, _ = torch.cuda.mem_get_info(device)
+    return nbytes <= free // 2
 
 
 @dataclasses.dataclass
@@ -279,13 +293,23 @@ class EngineBase:
             else:
                 src = np.asarray(initial_walks, dtype=np.int64)
             self.num_walks = src.shape[0]
-            self.corpus = (
-                np.full((self.num_walks, task.length + 1), -1, np.int32)
-                if record_walks
-                else None
-            )
+            # the corpus lives on the engine's device, where the advance writes
+            # each recorded step into its walk's row, and comes back once, in
+            # result(); one that does not fit there is kept on the host and
+            # filled from each advance's trace
+            self.corpus: Optional[np.ndarray] = None
+            self.device_corpus: Optional[torch.Tensor] = None
             if record_walks:
-                self.corpus[:, 0] = src
+                shape = (self.num_walks, task.length + 1)
+                if corpus_fits(4 * shape[0] * shape[1], self.device):
+                    spans.count("corpus.device")
+                    dev = self.device
+                    self.device_corpus = torch.full(shape, -1, dtype=torch.int32, device=dev)
+                    self.device_corpus[:, 0] = torch.as_tensor(src.astype(np.int32), device=dev)
+                else:
+                    spans.count("corpus.host")
+                    self.corpus = np.full(shape, -1, np.int32)
+                    self.corpus[:, 0] = src
             # the storage layer: walk pool ("disk" tier) + block store; with the
             # async pipeline the pool persists through a sequenced writer thread
             # (ticketed pushes — serial state sequence, off the critical path),
@@ -429,6 +453,7 @@ class EngineBase:
                 record=self.record_walks,
                 has_alias=self.has_alias,
                 max_len=int(self.task.length),
+                corpus=self.device_corpus,
             )
             # the device-to-host copies synchronise, so exec_time covers the
             # run; the "advance.exec" span is made of the same two reads
@@ -438,7 +463,7 @@ class EngineBase:
             spans.add("advance.exec", t0, t1)
             self.advance_calls += 1
             self.stats.steps_sampled += int(steps)
-            if self.record_walks:
+            if self.corpus is not None:
                 self._record_trace(wid, trace[:n])
             new_batch = WalkBatch(batch.src, prev_f[:n], cur_f[:n], hop_f[:n])
             return new_batch, alive_f[:n]
@@ -504,11 +529,20 @@ class EngineBase:
         """Assemble the :class:`WalkResult` and close the engine.  Every
         engine reports ``loader_summary`` uniformly — baselines (and any
         engine without a learning-based loader) report ``None``."""
+        corpus = self.corpus
+        if self.device_corpus is not None:
+            # one copy to the host, into memory the caller owns (none from the
+            # CPU, where the engine hands its tensor over); its time is that of
+            # touching fresh host pages, which a copy through pinned memory
+            # pays as well
+            with spans.span("corpus.fetch"):
+                corpus = self.device_corpus.cpu().numpy()
+            self.device_corpus = None
         res = WalkResult(
             num_walks=self.num_walks,
             steps_sampled=self.stats.steps_sampled,
             endpoint_counts=self.endpoint_counts,
-            corpus=self.corpus,
+            corpus=corpus,
             stats=self.stats,
             loader_summary=loader_summary,
             block_store_counters=self.blocks.counters(),

@@ -98,6 +98,7 @@ def pair_advance_ref(
     has_alias: bool,
     max_len: int,
     max_hops: int | None = None,
+    corpus: torch.Tensor | None = None,  # [W, max_len+1] i32 — the walks, by walk id
 ):
     """Advance every walk until it leaves the resident view pair or
     terminates, for at most ``max_hops`` hops (``None`` means
@@ -105,7 +106,8 @@ def pair_advance_ref(
     ``(prev, cur, hop, alive, steps, trace)``, where
     ``trace[n, h]`` is the vertex walk n reached at hop h during this call
     (-1 = no move); ``trace`` is ``[N, max_len+1]``, or ``[1, 1]`` when not
-    recording.
+    recording.  Recording with a ``corpus``, the vertex goes to
+    ``corpus[wid[n], h]`` in place instead, and ``trace`` is ``[1, 1]``.
 
     The ``k_max`` proposal rounds of one hop are drawn together as a
     ``[k_max, N]`` batch, and each lane takes its first accepted round —
@@ -144,7 +146,9 @@ def pair_advance_ref(
     seg_lo = torch.tensor([vb0, vb1], dtype=i64, device=dev)[:, None]
     seg_hi = torch.tensor([vb0 + nv0, vb1 + nv1], dtype=i64, device=dev)[:, None]
     # one spare "dump" column (max_len+1) absorbs writes of frozen walks
-    trace = torch.full((N, max_len + 2) if record else (1, 1), -1, dtype=torch.int32, device=dev)
+    into_corpus = record and corpus is not None
+    trace_shape = (N, max_len + 2) if record and not into_corpus else (1, 1)
+    trace = torch.full(trace_shape, -1, dtype=torch.int32, device=dev)
     lanes = torch.arange(N, device=dev)
 
     def locate(v):
@@ -213,14 +217,17 @@ def pair_advance_ref(
         alive = alive & ~dead & ~finished & ~stopped
         slot, row, found = locate(new_cur)
         resident = alive & found
-        if record:
+        if into_corpus:
+            cols = new_hop.clamp(0, max_len)
+            corpus[wid[movable].to(i64), cols[movable]] = new_cur[movable].to(torch.int32)
+        elif record:
             cols = torch.where(movable, new_hop.clamp(0, max_len), max_len + 1)
             trace[lanes, cols] = new_cur.to(torch.int32)
         prev, cur, hop = new_prev, new_cur, new_hop
         it += 1
 
     steps = (hop - hop_in).sum().to(torch.int32)
-    if record:
+    if record and not into_corpus:
         trace = trace[:, : max_len + 1]
     i32 = torch.int32
     return prev.to(i32), cur.to(i32), hop.to(i32), alive, steps, trace

@@ -69,6 +69,14 @@
 //    `steps`.  A hop's draws are pure functions of its key, so they are
 //    computed after its first gathers are issued, while those are in flight.
 //
+//  * The record store goes to one of two places.  With corpus_rows == 0,
+//    `trace` is the call's own [n, max_len + 1] trace, one row per lane.
+//    With corpus_rows > 0, `trace` is the engine's whole corpus,
+//    [corpus_rows, max_len + 1], and a lane writes the row of its walk id,
+//    so the corpus stays on the card and nothing is copied back or
+//    scattered per call.  Walk ids are unique within a call, so no cell is
+//    written twice; a lane whose id is outside the corpus writes nothing.
+//
 // `steps` (one int) and `slot_flags` (two ints, 1 where slot s keeps the
 // search) are zeroed by the wrapper.
 
@@ -227,7 +235,7 @@ __global__ void __launch_bounds__(kThreads) pair_advance_kernel(
     int* __restrict__ cur_out, int* __restrict__ hop_out, bool* __restrict__ alive_out,
     int* __restrict__ trace, int* __restrict__ steps, int* slot_flags, int n, uint32_t key0,
     uint32_t key1, int length, float decay, float acc_ret, float acc_nbr, float acc_away,
-    int k_max, int n_iters, int v_iters, int record, int max_len, int max_hops) {
+    int k_max, int n_iters, int v_iters, int record, int corpus_rows, int max_len, int max_hops) {
   __shared__ Slot S[2];
   if (threadIdx.x < 2) {
     const int s = threadIdx.x;
@@ -254,11 +262,15 @@ __global__ void __launch_bounds__(kThreads) pair_advance_kernel(
     int hop = hop_in[lane];
     const int hop0 = hop;
     bool alive = alive_in[lane];
+    const int wid = wid_in[lane];
     uint32_t kwid0, kwid1;
-    threefry2x32(key0, key1, 0u, (uint32_t)wid_in[lane], kwid0, kwid1);
+    threefry2x32(key0, key1, 0u, (uint32_t)wid, kwid0, kwid1);
     int slot = 0, row = 0;
     bool resident = alive && locate(P, S, cur, v_iters, slot, row);
-    int* trace_row = record ? trace + (size_t)lane * (size_t)(max_len + 1) : nullptr;
+    // the record row: the lane's own trace row, or its walk's corpus row
+    const size_t trace_at = corpus_rows > 0 ? (size_t)(unsigned)wid : (size_t)lane;
+    const bool store = record && (corpus_rows == 0 || (unsigned)wid < (unsigned)corpus_rows);
+    int* trace_row = store ? trace + trace_at * (size_t)(max_len + 1) : nullptr;
     // order 2: prev's membership range, and whether it is known (carried
     // from the hop before)
     bool have_u = false;
@@ -340,7 +352,7 @@ __global__ void __launch_bounds__(kThreads) pair_advance_kernel(
       prev = cur;
       cur = z;
       hop += 1;
-      if (record) trace_row[hop < max_len ? hop : max_len] = cur;
+      if (store) trace_row[hop < max_len ? hop : max_len] = cur;
       if (hop >= length || u_term >= decay) {
         alive = false;
         break;
@@ -364,19 +376,20 @@ void launch(int grid, cudaStream_t stream, const Pair& P, const int* nverts, con
             const int* cur, const int* hop, const bool* alive, int* prev_out, int* cur_out,
             int* hop_out, bool* alive_out, int* trace, int* steps, int* slot_flags, int n,
             uint32_t key0, uint32_t key1, int length, float decay, float acc_ret, float acc_nbr,
-            float acc_away, int k_max, int n_iters, int v_iters, int record, int max_len,
-            int max_hops) {
+            float acc_away, int k_max, int n_iters, int v_iters, int record, int corpus_rows,
+            int max_len, int max_hops) {
   pair_advance_kernel<ORDER, HAS_ALIAS><<<grid, kThreads, 0, stream>>>(
       P, nverts, vid_base, ptr_base, ind_base, wid, prev, cur, hop, alive, prev_out, cur_out,
       hop_out, alive_out, trace, steps, slot_flags, n, key0, key1, length, decay, acc_ret,
-      acc_nbr, acc_away, k_max, n_iters, v_iters, record, max_len, max_hops);
+      acc_nbr, acc_away, k_max, n_iters, v_iters, record, corpus_rows, max_len, max_hops);
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  `steps` points at one int and
-// `slot_flags` at two, all zeroed by the caller.  Launches the slot check,
-// then the advance.
+// `slot_flags` at two, all zeroed by the caller.  `trace` is the call's
+// trace (corpus_rows 0) or the corpus of corpus_rows walks.  Launches the
+// slot check, then the advance.
 // Returns cudaGetLastError().
 extern "C" int pair_advance_launch(
     const void* vids, int sv, const void* nverts, const void* vid_base, const void* indptr,
@@ -386,7 +399,7 @@ extern "C" int pair_advance_launch(
     void* hop_out, void* alive_out, void* trace, void* steps, void* slot_flags, int n,
     unsigned int key0, unsigned int key1, int length, float decay, float acc_ret, float acc_nbr,
     float acc_away, int order, int k_max, int n_iters, int v_iters, int record, int has_alias,
-    int max_len, int max_hops, void* stream) {
+    int corpus_rows, int max_len, int max_hops, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   Pair P;
   P.vids = static_cast<const int*>(vids);
@@ -415,7 +428,7 @@ extern "C" int pair_advance_launch(
       static_cast<int*>(prev_out), static_cast<int*>(cur_out), static_cast<int*>(hop_out),     \
       static_cast<bool*>(alive_out), static_cast<int*>(trace), static_cast<int*>(steps), flags, \
       n, key0, key1, length, decay, acc_ret, acc_nbr, acc_away, k_max, n_iters, v_iters, record,  \
-      max_len, max_hops
+      corpus_rows, max_len, max_hops
   if (order == 2) {
     if (has_alias) launch<2, true>(PA_ARGS); else launch<2, false>(PA_ARGS);
   } else {

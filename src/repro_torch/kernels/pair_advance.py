@@ -12,6 +12,8 @@ the Pallas TPU kernel ``pair_advance_kernel`` of
 (:func:`repro_torch.engines.step.pair_advance_ref`) for tensors on the CPU,
 and launches the kernel for tensors on a CUDA device (or raises).  Both
 return ``(prev, cur, hop, alive, steps, trace)`` and are bit-identical.
+Given a ``corpus`` (an engine's ``[W, max_len + 1]`` walks), both write
+each recorded step into its walk's row there instead of a trace.
 ``fused_advance_pair.launches`` counts kernel launches, and
 :func:`contiguous_slots` says which slots the last launch remapped in O(1).
 """
@@ -38,7 +40,7 @@ _ARGTYPES = (
     + [_P] * 5  # lanes in
     + [_P] * 7  # lanes out, trace, steps, slot_flags
     + [_I, _U, _U, _I, _F, _F, _F, _F]  # n, key, length, decay, thresholds
-    + [_I] * 8  # order, k_max, n_iters, v_iters, record, has_alias, max_len, max_hops
+    + [_I] * 9  # order, k_max, n_iters, v_iters, record, has_alias, corpus rows, max_len, hops
     + [_P]  # stream
 )
 
@@ -62,7 +64,7 @@ def _check(name, t, dtype, device):
 
 
 def _prepare(args, lanes, key, length, decay, p, q, *, order, k_max, n_iters, v_iters, record,
-             has_alias, max_len, max_hops=None):  # fmt: skip
+             has_alias, max_len, max_hops=None, corpus=None):  # fmt: skip
     """Check CUDA inputs, allocate the outputs, and return them with a
     plan for :func:`_launch`: the device, the kernel's ctypes argument list
     and the slot flags (the plan keeps the outputs it points at alive)."""
@@ -93,13 +95,21 @@ def _prepare(args, lanes, key, length, decay, p, q, *, order, k_max, n_iters, v_
         raise ValueError("the packed pair arrays must not be empty")
     if has_alias and not (alias_j.shape == alias_q.shape == indices.shape):
         raise ValueError("alias tables must align with indices")
+    if corpus is not None:
+        _check("corpus", corpus, i32, dev)
+        if corpus.dim() != 2 or corpus.shape[0] == 0 or corpus.shape[1] != max_len + 1:
+            raise ValueError(f"corpus must be [W, max_len + 1] = [W, {max_len + 1}]")
+    into_corpus = record and corpus is not None
 
     with torch.cuda.device(dev):
         prev_out = torch.empty_like(prev)
         cur_out = torch.empty_like(cur)
         hop_out = torch.empty_like(hop)
         alive_out = torch.empty_like(alive)
-        trace = torch.full((n, max_len + 1) if record else (1, 1), -1, dtype=i32, device=dev)
+        # recording into the corpus, the trace is the [1, 1] placeholder
+        # of a call that records nothing
+        shape = (n, max_len + 1) if record and not into_corpus else (1, 1)
+        trace = torch.full(shape, -1, dtype=i32, device=dev)
         counts = torch.zeros(3, dtype=i32, device=dev)  # the step count and two slot flags
         steps, flags = counts[0], counts[1:]
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -111,19 +121,21 @@ def _prepare(args, lanes, key, length, decay, p, q, *, order, k_max, n_iters, v_
         indices.numel(), ind_base.data_ptr(), alias_j.data_ptr(), alias_q.data_ptr(),
         alias_q.numel(),
         *(t.data_ptr() for t in lanes),
-        *(t.data_ptr() for t in (prev_out, cur_out, hop_out, alive_out, trace, steps, flags)),
+        *(t.data_ptr() for t in (prev_out, cur_out, hop_out, alive_out)),
+        (corpus if into_corpus else trace).data_ptr(), steps.data_ptr(), flags.data_ptr(),
         n, k0, k1, int(length), float(decay), acc_ret, acc_nbr, acc_away,
-        order, k_max, n_iters, v_iters, int(bool(record)), int(bool(has_alias)), max_len,
-        hops, stream,
+        order, k_max, n_iters, v_iters, int(bool(record)), int(bool(has_alias)),
+        corpus.shape[0] if into_corpus else 0, max_len, hops, stream,
     )  # fmt: skip
     outs = (prev_out, cur_out, hop_out, alive_out, steps, trace)
-    return outs, (dev, cargs, flags, outs)
+    return outs, (dev, cargs, flags, outs, corpus)
 
 
 def _launch(plan) -> None:
     """Launch the kernel once on an argument list made by :func:`_prepare`.
-    Relaunching it rewrites the lanes and trace and adds to ``steps`` (the
-    slot check it runs first finds the same flags on the same pair)."""
+    Relaunching it rewrites the lanes and trace (or corpus) and adds to
+    ``steps`` (the slot check it runs first finds the same flags on the
+    same pair)."""
     dev, cargs = plan[:2]
     with torch.cuda.device(dev):
         rc = _kernel()(*cargs)
@@ -160,12 +172,15 @@ def fused_advance_pair(
     has_alias: bool,
     max_len: int,
     max_hops: int | None = None,
+    corpus=None,
 ):
     """Advance every walk until it leaves the resident view pair or
     terminates, for at most ``max_hops`` hops (``None``: ``max_len + 1``,
     the full sweep; 1 gives the single-hop form of
     :mod:`repro_torch.kernels.ops`); the argument list and return contract
-    of :func:`~repro_torch.engines.step.pair_advance_ref`."""
+    of :func:`~repro_torch.engines.step.pair_advance_ref`, ``corpus``
+    included (an int32 ``[W, max_len + 1]`` tensor, contiguous, on the
+    lanes' device)."""
     kw = dict(
         order=order,
         k_max=k_max,
@@ -175,6 +190,7 @@ def fused_advance_pair(
         has_alias=has_alias,
         max_len=max_len,
         max_hops=max_hops,
+        corpus=corpus,
     )
     args = (vids, nverts, vid_base, indptr, ptr_base, indices, ind_base, alias_j, alias_q)
     lanes = (wid, prev, cur, hop, alive)

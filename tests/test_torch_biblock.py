@@ -185,6 +185,48 @@ def test_cuda_impl_on_cpu_tensors_takes_plain_version():
     assert _sig(a) == _sig(b)
 
 
+@pytest.mark.parametrize("engine", ["biblock", "pb", "sogw"])
+def test_device_corpus_matches_host_fallback(monkeypatch, engine):
+    """The corpus kept on the engine's device (the CPU here), written by the
+    advance and fetched once, equals the host corpus filled from each
+    advance's trace, which an engine keeps when the corpus does not fit on
+    its device; each run counts the path it took, once."""
+    from repro_torch.core import spans
+    from repro_torch.engines import PlainBucketEngine, SOGWEngine
+    from repro_torch.engines import base
+
+    cls = {"biblock": TBiBlockEngine, "pb": PlainBucketEngine, "sogw": SOGWEngine}[engine]
+    jbg, tbg = _graphs()
+    jtask, ttask = _tasks(2)
+    kw = dict(record_walks=True, async_pipeline=False, device="cpu", advance_impl="torch")
+    runs = {}
+    spans.take()
+    spans.enable()
+    try:
+        for path in ("device", "host"):
+            if path == "host":
+                monkeypatch.setattr(base, "corpus_fits", lambda nbytes, device: False)
+            res = cls(tbg, ttask, **kw).run()
+            got, counts = spans.take()
+            names = {s.name for s in got}
+            other = "host" if path == "device" else "device"
+            assert counts.get(f"corpus.{path}") == 1 and f"corpus.{other}" not in counts
+            assert ("corpus.fetch" in names) == (path == "device")
+            assert ("advance.record" in names) == (path == "host")
+            runs[path] = res
+    finally:
+        spans.disable()
+        spans.take()
+    a, b = runs["device"], runs["host"]
+    assert isinstance(a.corpus, np.ndarray) and a.corpus.dtype == np.int32
+    assert a.corpus.shape == (a.num_walks, ttask.length + 1)
+    np.testing.assert_array_equal(a.corpus, b.corpus)
+    assert _sig(a) == _sig(b)
+    if engine == "biblock":  # and both are the JAX package's corpus
+        want = JBiBlockEngine(jbg, jtask, record_walks=True, async_pipeline=False).run()
+        np.testing.assert_array_equal(a.corpus, want.corpus)
+
+
 #: launcher CSV columns that do not depend on wall clock or thread timing
 DETERMINISTIC = (
     "block_ios",

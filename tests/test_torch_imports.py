@@ -416,7 +416,8 @@ def _kw(name, default=_CUDA):
 #: and ``advance_impl``, the Pallas knobs it drops (``interpret``,
 #: ``walk_tile``, ``advance_interpret``), a ``torch.Generator`` ``gen`` for a
 #: PRNG ``key``, the launchers' ``argv``, ``device_type`` for the meshes the
-#: dry run builds, and its artifact's keyword, ``save_comms`` for ``save_hlo``
+#: dry run builds, and its artifact's keyword, ``save_comms`` for ``save_hlo``;
+#: the pair advance's ``corpus``, an engine's walks that it records into
 _ENGINE = {"default": {"advance_impl": _CUDA}, "drop": ["advance_interpret"],
            "after": {"advance_impl": [_kw("device")]}}  # fmt: skip
 _WALKER = {"append": [_kw("advance_impl"), _kw("device")]}
@@ -432,7 +433,8 @@ _PINNED = {
     "kernels": ({"WALK_TILE", "pair_advance_kernel"}, set(),
                 {"alias_step": {"drop": ["interpret", "walk_tile"]},
                  "node2vec_step": {"drop": ["interpret", "walk_tile"]},
-                 "fused_advance_pair": {"drop": ["interpret", "walk_tile"]},
+                 "fused_advance_pair": {"drop": ["interpret", "walk_tile"],
+                                        "append": [_kw("corpus", "None")]},
                  "bucket_hist_kernel": {"drop": ["interpret"]},
                  "bucket_hist_ref": {"append": [_kw("tile", "1024")]}}),
     "kernels.rng": (set(), {"bits_to_unit"}, {"key_halves": {"rename": {"key": "seed"}}}),

@@ -6,8 +6,9 @@ skips on a host without a CUDA device.  Run it there with
     python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerance: bitwise, on all six outputs of the pair advance (full sweep
-and ``max_hops``), on the bucket histogram's counts (every path, at bucket
-counts on both sides of each path's limit), on
+and ``max_hops``) and on the corpus it records into, on the bucket
+histogram's counts (every path, at bucket counts on both sides of each
+path's limit), on
 ``node2vec_step`` / ``alias_step`` against the dense oracle, on whole
 runs of every engine, and on a query server's answers and charges, kernel
 against plain version.
@@ -273,6 +274,123 @@ def test_wrapper_rejects_wrong_dtype(cuda):
             order=2, k_max=1, n_iters=4, v_iters=v_iters, record=False,
             has_alias=False, max_len=LENGTH,
         )  # fmt: skip
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_len", [LENGTH, LENGTH - 2], ids=["full", "clamped"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize(
+    "case", ["pair", "dedup", "activated", "deadend", "oracle", "gathered", "prevmiss"]
+)
+@pytest.mark.parametrize("order", [1, 2])
+def test_kernel_corpus_matches_plain_version(cuda, order, case, weighted, max_len):
+    """Recording into a corpus on the card, the kernel writes each step
+    into its walk's row exactly as the plain version does: permuted walk
+    ids, padded dead lanes on walk id 0 (row 0 stays as it was), two
+    successive calls on one corpus, and hops past ``max_len`` clamped to
+    its column."""
+    dead = case == "deadend"
+    bg = _graph(weighted, dead)
+    lanes = _lanes(bg, cuda, dead=dead)
+    if case == "prevmiss":
+        lanes = _prev_outside_pair(lanes)
+    rows = 4001
+    ids = np.random.default_rng(6).permutation(np.arange(1, rows))[:900]
+    lanes[0][:900] = torch.as_tensor(ids, dtype=torch.int32, device=cuda)
+    edges = bg.max_block_edges
+    if case == "oracle":
+        args, v_iters = _oracle_args(bg, cuda)
+        edges = bg.num_edges
+    else:
+        pair = ResidentPair(bg, weighted, device=cuda)
+        full = lambda b: BlockView.from_resident(bg.materialize_block(b))
+        prev = lanes[1].cpu().numpy()[:900]
+        outside = (prev >= 1000) & (lanes[3].cpu().numpy()[:900] > 0)
+        v1 = {
+            "dedup": lambda: pair.views[0],
+            "activated": lambda: bg.partial_view(1, np.arange(1000, 2000, 3)),
+            "gathered": lambda: bg.gather_view(np.unique(prev[outside])),
+        }.get(case, lambda: full(1))
+        pair.set_slot(0, full(0))
+        pair.set_slot(1, v1())
+        args, v_iters = pair.device_args()
+    statics = dict(
+        order=order, k_max=16 if order == 2 else 1,
+        n_iters=int(np.ceil(np.log2(max(edges, 2)))) + 2, v_iters=v_iters, record=True,
+        has_alias=weighted, max_len=max_len,
+    )  # fmt: skip
+    start = torch.full((rows, max_len + 1), -1, dtype=torch.int32, device=cuda)
+    start[:, 0] = torch.arange(rows, device=cuda, dtype=torch.int32) % 3000
+    want, got = start.clone(), start.clone()
+    state = lanes
+    for call, hops in enumerate((2, None)):  # a partial advance, then the rest
+        call_args = (*args, *state, key_halves(13), LENGTH, 0.85, 3.0, 0.5)
+        a = pair_advance_ref(*call_args, max_hops=hops, corpus=want, **statics)
+        b = kernel.fused_advance_pair(*call_args, max_hops=hops, corpus=got, **statics)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y), call
+        assert b[5].shape == (1, 1) and int(b[5]) == -1
+        assert torch.equal(want, got), call
+        state = [lanes[0], *b[:4]]
+    assert not torch.equal(got, start)
+    assert torch.equal(got[0], start[0])  # the padded lanes wrote nothing
+    if max_len < LENGTH:
+        assert bool((b[2][:900] > max_len).any())
+
+
+@pytest.mark.gpu
+def test_wrapper_rejects_a_wrong_corpus(cuda):
+    bg = _graph(False)
+    pair = ResidentPair(bg, False, device=cuda)
+    pair.set_slot(0, BlockView.from_resident(bg.materialize_block(0)))
+    pair.set_slot(1, BlockView.from_resident(bg.materialize_block(1)))
+    args, v_iters = pair.device_args()
+    lanes = _lanes(bg, cuda)
+    call = (*args, *lanes, key_halves(0), LENGTH, 1.0, 1.0, 1.0)
+    statics = dict(order=2, k_max=1, n_iters=4, v_iters=v_iters, record=True, has_alias=False,
+                   max_len=LENGTH)  # fmt: skip
+    good = torch.full((4000, LENGTH + 1), -1, dtype=torch.int32, device=cuda)
+    for bad, err in (
+        (good.long(), TypeError),
+        (good.cpu(), ValueError),
+        (good[:, :LENGTH], ValueError),
+        (good.t().contiguous().t(), ValueError),
+    ):
+        with pytest.raises(err, match="corpus"):
+            kernel.fused_advance_pair(*call, corpus=bad, **statics)
+
+
+@pytest.mark.gpu
+def test_engine_device_corpus_matches_cpu(cuda, monkeypatch):
+    """A recording bi-block engine on the card keeps its corpus there and
+    gives the corpus of the same engine on the CPU; forced onto the host
+    path, the card's engine gives it too."""
+    from repro_torch.core import partition_into_n_blocks, rwnv_task, spans
+    from repro_torch.engines import base
+
+    bg = partition_into_n_blocks(erdos_renyi(2000, 16000, seed=2), 3)
+    task = rwnv_task(p=4.0, q=0.25, walks_per_vertex=2, length=8, seed=2)
+    kw = dict(record_walks=True, async_pipeline=False)
+    cpu = BiBlockEngine(bg, task, device="cpu", advance_impl="torch", **kw).run()
+    spans.take()
+    spans.enable()
+    try:
+        card = BiBlockEngine(bg, task, device=cuda, **kw).run()
+        _, counts = spans.take()
+        assert counts.get("corpus.device") == 1 and "corpus.host" not in counts
+        monkeypatch.setattr(base, "corpus_fits", lambda nbytes, device: False)
+        host = BiBlockEngine(bg, task, device=cuda, **kw).run()
+        _, counts = spans.take()
+        assert counts.get("corpus.host") == 1 and "corpus.device" not in counts
+    finally:
+        spans.disable()
+        spans.take()
+    for res in (card, host):
+        assert isinstance(res.corpus, np.ndarray) and res.corpus.dtype == np.int32
+        np.testing.assert_array_equal(res.corpus, cpu.corpus)
+        np.testing.assert_array_equal(res.endpoint_counts, cpu.endpoint_counts)
+        assert res.steps_sampled == cpu.steps_sampled
 
 
 @pytest.mark.gpu

@@ -25,6 +25,9 @@ held here too, JAX advance against plain version: the oracle's (the whole
 graph as one contiguous slot, slot 1 aliasing it), a gathered slot 1 as
 SOGW builds it, lanes whose prev is in neither slot, and a slot whose ids
 keep a full block's end points but have a gap or a swap.
+
+Recording into an engine's corpus (``corpus=``, the walks by walk id)
+equals the trace scattered on the host, over successive calls.
 """
 
 import jax.numpy as jnp
@@ -316,3 +319,70 @@ def test_advance_kernel_guard_layouts_match_jax(order, layout):
     outs["ref"] = pair_advance_ref(*targs, *tl, *tscal, **statics)
     _assert_same(outs)
     assert int(_np(outs["ref"][4])) > 0
+
+
+# ---- recording into the engine's corpus --------------------------------------
+
+#: rows of the corpus in the corpus-mode cases; row 0 belongs to no lane
+CORPUS_ROWS = 701
+
+
+def _scatter(corpus, wid, trace):
+    """The engine's host path: each recorded step of a trace into its walk's row."""
+    for h in range(trace.shape[1]):
+        m = trace[:, h] >= 0
+        corpus[wid[m], h] = trace[m, h]
+
+
+@pytest.mark.parametrize("max_len", [LENGTH, LENGTH - 2], ids=["full", "clamped"])
+@pytest.mark.parametrize("case", ["pair", "dedup"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("order", [1, 2])
+def test_corpus_mode_matches_trace_scattered_on_host(order, weighted, case, max_len):
+    """Recording into a corpus writes what the trace, scattered on the host
+    by walk id, writes: over two successive calls on one corpus, with
+    permuted walk ids, and padded dead lanes (walk id 0) that leave row 0
+    as it was.  ``max_len < length`` sends hops past it to its column.
+    The wrapper's CPU path passes the corpus on to the plain version."""
+    jbg, tbg = _graphs(weighted)
+    pair = TResidentPair(tbg, weighted, device="cpu")
+    v0, v1 = _views(tbg, TBlockView, case)
+    pair.set_slot(0, v0)
+    pair.set_slot(1, v1)
+    args, v_iters = pair.device_args()
+    wid, prev, cur, hop, alive = (torch.from_numpy(x) for x in _lanes(jbg))
+    n = 200
+    ids = np.random.default_rng(SEED).permutation(np.arange(1, CORPUS_ROWS))[:n]
+    wid[:n] = torch.from_numpy(ids.astype(np.int32))
+    assert (wid[n:] == 0).all() and not alive[n:].any() and (~alive[:n]).any()
+    statics = dict(
+        order=order, k_max=4 if order == 2 else 1,
+        n_iters=int(np.ceil(np.log2(max(tbg.max_block_edges, 2)))) + 2, v_iters=v_iters,
+        record=True, has_alias=weighted, max_len=max_len,
+    )  # fmt: skip
+    scal = (key_halves(SEED), LENGTH, 1.0, P, Q)
+    start = np.full((CORPUS_ROWS, max_len + 1), -1, np.int32)
+    start[:, 0] = np.arange(CORPUS_ROWS) % 120
+    want = start.copy()
+    corpus = torch.from_numpy(start.copy())
+    wrapped = torch.from_numpy(start.copy())
+    lanes = (wid, prev, cur, hop, alive)
+    for call, hops in enumerate((2, None)):  # a partial advance, then the rest
+        traced = pair_advance_ref(*args, *lanes, *scal, max_hops=hops, **statics)
+        into = pair_advance_ref(*args, *lanes, *scal, max_hops=hops, corpus=corpus, **statics)
+        tkernel.fused_advance_pair(*args, *lanes, *scal, max_hops=hops, corpus=wrapped, **statics)
+        _scatter(want, wid.numpy(), traced[5].numpy())
+        for a, b in zip(traced[:5], into[:5]):
+            assert torch.equal(a, b), call
+        assert into[5].shape == (1, 1) and int(into[5]) == -1
+        np.testing.assert_array_equal(corpus.numpy(), want, err_msg=f"call {call}")
+        assert torch.equal(wrapped, corpus), call
+        lanes = (wid, *traced[:4])
+    hop_out = traced[2].numpy()
+    assert (hop_out[:n] > hop.numpy()[:n]).sum() > 20  # the walks did move
+    np.testing.assert_array_equal(corpus[0].numpy(), start[0])  # the dead lanes wrote nothing
+    dead = ~alive.numpy()[:n]
+    np.testing.assert_array_equal(corpus.numpy()[ids[dead]], start[ids[dead]])
+    if max_len < LENGTH:  # some walk stepped past max_len, into its last column
+        assert (hop_out[:n] > max_len).any()
+

@@ -242,7 +242,10 @@ def test_every_span_nests_inside_the_run(runs):
     _, on, got, _ = runs
     names = {s.name for s in got}
     assert {"engine.init", "task.run", "init", "slot", "pool", "load", "advance"} <= names
-    assert {"advance.upload", "advance.exec", "advance.record", "retire", "persist"} <= names
+    # the corpus is kept on the engine's device (here the CPU) and fetched once
+    assert {"advance.upload", "advance.exec", "corpus.fetch", "retire", "persist"} <= names
+    assert "advance.record" not in names
+    assert sum(s.name == "corpus.fetch" for s in got) == 1
     if on.stats.supersteps and "bucket" in names:
         assert "route" in names
     by_index = {s.index: s for s in got}
@@ -269,7 +272,7 @@ def test_advance_exec_adds_up_to_exec_time(runs):
 
 def test_loader_decisions_add_up_to_the_buckets(runs):
     _, on, got, counts = runs
-    assert set(counts) <= {"load.full", "load.ondemand"}
+    assert set(counts) <= {"load.full", "load.ondemand", "corpus.device"}
     n = counts.get("load.full", 0) + counts.get("load.ondemand", 0)
     assert n == on.stats.bucket_executions > 0
     decided = [s for s in got if s.name == "load" and "decision" in s.attrs]
