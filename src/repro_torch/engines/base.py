@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from collections import OrderedDict
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -99,7 +100,16 @@ class ResidentPair:
     being padded to the block maxima.  When both slots hold the same view
     (initialization, single-block engines) the segment is stored once and
     both slots alias it.
+
+    ``keep_full`` full views stay on the device, keyed by block, for as
+    long as they are among the most recently used: a full view of a block
+    is the same arrays on every load, so a slot that returns to it uploads
+    nothing.  First-order engines keep two, the pair's budget, since both
+    of their slots alias one view.
     """
+
+    #: full views kept on the device (0: none, every call uploads)
+    keep_full = 0
 
     #: pow2 floor for activated-view capacities (vertices, edges)
     V_FLOOR = 64
@@ -120,6 +130,9 @@ class ResidentPair:
         # pack-once-per-slot-change: packed segment + caps, keyed by the view
         # object resident in the slot (views are immutable once built)
         self._packed: list = [None, None]
+        # block id -> (args, v_iters, resident bytes) of its full view alone
+        # in both slots, least recently used first
+        self._kept: "OrderedDict[int, tuple]" = OrderedDict()
 
     def set_slot(self, s: int, view: BlockView) -> None:
         if self.views[s] is not view:
@@ -168,6 +181,24 @@ class ResidentPair:
         ``(args, v_iters)`` — ``v_iters`` is the static binary-search depth
         for the remap lookup at this padded size."""
         v0, v1 = self.views
+        if self.keep_full and v1 is v0 and v0.kind == "full":
+            kept = self._kept.pop(v0.block_id, None)
+            if kept is None:
+                kept = self._upload()
+            self._kept[v0.block_id] = kept
+            while len(self._kept) > self.keep_full:
+                self._kept.popitem(last=False)
+        else:
+            kept = self._upload()
+        args, v_iters, nbytes = kept
+        if self.stats is not None:
+            self.stats.note_resident(nbytes)
+        return args, v_iters
+
+    def _upload(self):
+        """Pack the slots and copy them to the device: ``(args, v_iters,
+        resident bytes)``."""
+        v0, v1 = self.views
         dedupe = v1 is v0
         slots = [0] if dedupe else [0, 1]
         segs = []
@@ -197,18 +228,16 @@ class ResidentPair:
             vid_base = np.array([0, vc0], np.int32)
             ptr_base = np.array([0, vc0 + 1], np.int32)
             ind_base = np.array([0, ec0], np.int32)
-        if self.stats is not None:
-            nbytes = 4 * (vids.size + indptr.size + indices.size)
-            if self.has_alias:
-                nbytes += 8 * indices.size
-            self.stats.note_resident(nbytes)
+        nbytes = 4 * (vids.size + indptr.size + indices.size)
+        if self.has_alias:
+            nbytes += 8 * indices.size
         max_cap = max(vc for _, vc, _ in segs)
         v_iters = remap_search_iters(max_cap)
         args = tuple(
             torch.as_tensor(a, device=self.device)
             for a in (vids, nverts, vid_base, indptr, ptr_base, indices, ind_base, alias_j, alias_q)
         )
-        return args, v_iters
+        return args, v_iters, nbytes
 
 
 class EngineBase:
@@ -367,6 +396,8 @@ class EngineBase:
             self._pending_init_src = src
             self.unfinished = self.num_walks
             self.pair = ResidentPair(bg, self.has_alias, self.stats, self.device)
+            if self.order == 1:
+                self.pair.keep_full = 2
             self._closed = False
 
     # -- pool plumbing ("disk" walk I/O) --------------------------------------

@@ -294,9 +294,13 @@ class BiBlockEngine(EngineBase):
         scheduling + the learning-based loader on the current block itself
         ("heavy block loads become light vertex I/Os once few walks remain").
         Both slots hold the *same* view — an on-demand slot is a compacted
-        view over just the walks' current vertices."""
-        with spans.span("slot", block=b):
+        view over just the walks' current vertices.  The ``slot`` span
+        carries the walks it advanced and the steps they took; the
+        ``slot.visits`` counter sums the walks over the slots."""
+        with spans.span("slot", block=b) as slot:
             batch, wid = pipe.acquire_slot(b)
+            slot.set(walks=len(batch))
+            spans.count("slot.visits", len(batch))
             pipe.preload_slot(pipe.plan_next(b))
             self.stats.bucket_executions += 1
             with spans.span("load") as sp:
@@ -306,8 +310,10 @@ class BiBlockEngine(EngineBase):
             self.pair.set_slot(1, view)
             steps_before = self.stats.steps_sampled
             batch, alive, ext_cost = self._advance_on_view(b, batch, wid, view, decision)
+            steps = self.stats.steps_sampled - steps_before
+            slot.set(steps=steps)
             cost += ext_cost
-            cost += self.STEP_COST * (self.stats.steps_sampled - steps_before)
+            cost += self.STEP_COST * steps
             self.loader.observe(b, eta, cost, decision)
             batch, wid = self._retire(batch, wid, alive)
             self._persist(batch, wid)

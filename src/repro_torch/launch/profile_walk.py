@@ -10,7 +10,9 @@ Runs the launcher's path (:func:`repro_torch.launch.walk.main`) twice:
    loader's decisions, and on a card the device time by kernel and copy,
    the device's busy time (the union of its intervals) and idle share of
    the engines' time, and each idle second put down to the innermost span
-   open on this thread;
+   open on this thread; for a first-order task, the bi-block slots' walk
+   visits and hops per visit (the ``slot`` spans' steps over the
+   ``slot.visits`` counter);
 2. under :mod:`cProfile`: the host functions with the most cumulative and
    own time.
 
@@ -155,6 +157,12 @@ def span_profile(walk_argv, cuda: bool) -> dict:
     table = sorted(spans.self_times(recorded).items(), key=lambda kv: -kv[1]["self_ns"])
     out["spans"] = {k: {"n": v["n"], "self_s": v["self_ns"] / 1e9} for k, v in table}
     out["counts"] = counts
+    visits = counts.get("slot.visits", 0)
+    if visits:
+        slot_steps = sum(s.attrs.get("steps", 0) for s in recorded if s.name == "slot")
+        out["first_order"] = dict(
+            visits=visits, steps=slot_steps, hops_per_visit=slot_steps / visits
+        )
     return out
 
 
@@ -184,6 +192,7 @@ def main(argv=None):
     run = span_profile(walk_argv, cuda="cpu" not in walk_argv)
     report["spans"] = run.pop("spans")
     report["counts"] = run.pop("counts")
+    first_order = run.pop("first_order", None)
     device = run.pop("device", None)
     if device is not None:
         report["device"] = d = {**run, **device}
@@ -201,6 +210,12 @@ def main(argv=None):
         print(f"[spans] {row['self_s']:10.4f} s  x{row['n']:7d}  {name}")
     for name, n in sorted(report["counts"].items()):
         print(f"[counts] {n:8d}  {name}")
+    if first_order is not None:
+        report["first_order"] = first_order
+        print(
+            f"[first-order] {first_order['steps']} steps over {first_order['visits']} "
+            f"walk visits: {first_order['hops_per_visit']:.3f} hops per visit"
+        )
     report["host"] = host_profile(walk_argv, args.top)
     print(report["host"]["cumulative"])
     print(report["host"]["tottime"])

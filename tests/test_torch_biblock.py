@@ -137,6 +137,46 @@ def test_biblock_deepwalk_first_order_matches_jax(tmp_path, loading):
     assert _sig(runs["torch"]) == _sig(runs["jax"])
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("loading", ["full", "auto"])
+def test_first_order_pair_uploads_each_full_view_once(monkeypatch, loading, weighted):
+    """On 2 blocks a DeepWalk pair keeps both blocks' full views on its
+    device: each is uploaded once a run, not once a visit, and the walks,
+    charges and peak gauge are those of a pair that uploads every visit
+    and of the JAX package."""
+    from repro_torch.engines.base import ResidentPair
+
+    jbg, tbg = (_weighted_graphs if weighted else _graphs)(seed=5, nv=200, nblocks=2)
+    jtask, ttask = _tasks(1, seed=5)
+    uploads = []
+    upload = ResidentPair._upload
+
+    def counted(pair):
+        uploads.append(pair.views[0].kind)
+        return upload(pair)
+
+    monkeypatch.setattr(ResidentPair, "_upload", counted)
+    kw = dict(loading=loading, record_walks=True, async_pipeline=False)
+    runs = {}
+    for keep in (2, 0):
+        eng = TBiBlockEngine(tbg, ttask, device="cpu", advance_impl="torch", **kw)
+        assert eng.pair.keep_full == 2
+        eng.pair.keep_full = keep
+        uploads.clear()
+        runs[keep] = (eng.run(), list(uploads))
+    (kept, kept_up), (fresh, fresh_up) = runs[2], runs[0]
+    assert kept_up.count("full") == 2 < fresh_up.count("full")
+    assert kept_up.count("activated") == fresh_up.count("activated")
+    assert _sig(kept) == _sig(fresh)
+    assert _sig(kept) == _sig(JBiBlockEngine(jbg, jtask, **kw).run())
+
+
+def test_second_order_pair_keeps_no_view():
+    _, tbg = _graphs()
+    _, ttask = _tasks(2)
+    assert TBiBlockEngine(tbg, ttask, device="cpu", advance_impl="torch").pair.keep_full == 0
+
+
 @pytest.mark.parametrize("loading", ["full", "ondemand"])
 def test_biblock_weighted_matches_jax(tmp_path, loading):
     """A weighted graph walks through the alias tables of both packages'

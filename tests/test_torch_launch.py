@@ -111,6 +111,30 @@ def test_profile_walk_covers_every_engine_of_the_run(capsys):
     assert spans.span("advance") is spans.NO_SPAN  # off again
 
 
+def test_profile_walk_prints_hops_per_visit_of_a_first_order_task(capsys):
+    """A DeepWalk run: the slots' steps over the ``slot.visits`` counter."""
+    from repro_torch.launch import profile_walk
+
+    walk = ["--task", "deepwalk", "--vertices", "120", "--blocks", "3", "--length", "6",
+            "--engine", "biblock", *PORT]  # fmt: skip
+    report = profile_walk.main(["--top", "3", "--", *walk])
+    out = capsys.readouterr().out.splitlines()
+    first = report["first_order"]
+    assert first["visits"] == report["counts"]["slot.visits"] > 0
+    assert 0 < first["steps"] and first["hops_per_visit"] == first["steps"] / first["visits"]
+    line = f"{first['hops_per_visit']:.3f} hops per visit"
+    assert sum(x.startswith("[first-order]") and x.endswith(line) for x in out) == 1
+
+
+def test_profile_walk_prints_no_hops_per_visit_for_node2vec(capsys):
+    from repro_torch.launch import profile_walk
+
+    walk = ["--vertices", "120", "--blocks", "3", "--length", "4", "--engine", "biblock", *PORT]
+    report = profile_walk.main(["--top", "3", "--", *walk])
+    assert "first_order" not in report and "slot.visits" not in report["counts"]
+    assert not any(x.startswith("[first-order]") for x in capsys.readouterr().out.splitlines())
+
+
 # ---------------------------------------------------------------------------
 # the train launcher and the example twins
 # ---------------------------------------------------------------------------

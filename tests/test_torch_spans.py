@@ -5,7 +5,9 @@ The recorder's arithmetic on hand-timed spans (nesting, parents, self time,
 the innermost span, and a CPU run of the bi-block engine with spans on: the
 walks and every deterministic charge equal the run with spans off, every
 span nests inside the run, the advance call's spans add up to
-``IOStats.exec_time``, and the loader's decisions add up to the buckets.
+``IOStats.exec_time``, the loader's decisions add up to the buckets, and a
+first-order run's slots carry the walks they advanced and the steps those
+took, as the corpus shows them.
 """
 
 import threading
@@ -272,7 +274,7 @@ def test_advance_exec_adds_up_to_exec_time(runs):
 
 def test_loader_decisions_add_up_to_the_buckets(runs):
     _, on, got, counts = runs
-    assert set(counts) <= {"load.full", "load.ondemand", "corpus.device"}
+    assert set(counts) <= {"load.full", "load.ondemand", "corpus.device", "slot.visits"}
     n = counts.get("load.full", 0) + counts.get("load.ondemand", 0)
     assert n == on.stats.bucket_executions > 0
     decided = [s for s in got if s.name == "load" and "decision" in s.attrs]
@@ -280,3 +282,39 @@ def test_loader_decisions_add_up_to_the_buckets(runs):
     for d in ("full", "ondemand"):
         assert sum(s.attrs["decision"] == d for s in decided) == counts.get(f"load.{d}", 0)
     assert all(s.attrs["eta"] >= 0 and s.attrs["cost"] > 0 for s in decided)
+
+
+def _first_order_visits(corpus: np.ndarray, block_starts: np.ndarray):
+    """Walk visits to first-order slots and the steps they took, from the
+    corpus alone: the initialization advances each walk in its source block
+    until it leaves it; after that, each maximal run of hops taken from one
+    block is one visit."""
+    visits = steps = 0
+    for row in corpus:
+        row = row[row >= 0]
+        blocks = np.searchsorted(block_starts, row, side="right") - 1
+        h = 1
+        while h < len(row) and blocks[h] == blocks[0]:
+            h += 1
+        departures = blocks[h : len(row) - 1]  # blocks the slot hops start from
+        steps += departures.size
+        visits += int(departures.size and 1 + np.count_nonzero(np.diff(departures)))
+    return visits, steps
+
+
+def test_first_order_slots_carry_their_walks_and_steps(runs, request):
+    _, on, got, counts = runs
+    slots = [s for s in got if s.name == "slot"]
+    assert slots
+    if request.node.callspec.params["runs"] == 2:
+        # the second-order path opens no new span attribute or counter
+        assert "slot.visits" not in counts
+        assert all(set(s.attrs) == {"block"} for s in slots)
+        return
+    assert all(set(s.attrs) == {"block", "walks", "steps"} for s in slots)
+    walks = sum(s.attrs["walks"] for s in slots)
+    steps = sum(s.attrs["steps"] for s in slots)
+    assert walks == counts["slot.visits"] > 0
+    bg = partition_into_n_blocks(erdos_renyi(240, 1200, seed=5), 4)
+    assert (walks, steps) == _first_order_visits(on.corpus, np.asarray(bg.block_starts))
+    assert 0 < steps < on.steps_sampled
