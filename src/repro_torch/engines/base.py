@@ -101,15 +101,21 @@ class ResidentPair:
     (initialization, single-block engines) the segment is stored once and
     both slots alias it.
 
-    ``keep_full`` full views stay on the device, keyed by block, for as
-    long as they are among the most recently used: a full view of a block
-    is the same arrays on every load, so a slot that returns to it uploads
-    nothing.  First-order engines keep two, the pair's budget, since both
-    of their slots alias one view.
+    Each view is packed into a *segment* on the device: its arrays at the
+    view's capacity, the padding written there, and only the view's own
+    entries copied from the host (through page-locked memory on a card).
+    A full view of a block is the same arrays on every load, so the
+    segments of the ``keep_full`` most recently used full views stay on
+    the device, keyed by block, and a slot that returns to one uploads
+    nothing; in a second-order time slot every call touches slot 0's block
+    first, so two keep it for the whole slot.  Activated views are built
+    for each call.  The kernel's arrays are the two slots' segments
+    concatenated on the device, or the one segment itself when both slots
+    hold the same view.
     """
 
-    #: full views kept on the device (0: none, every call uploads)
-    keep_full = 0
+    #: full-view segments kept on the device, least recently used dropped
+    keep_full = 2
 
     #: pow2 floor for activated-view capacities (vertices, edges)
     V_FLOOR = 64
@@ -127,24 +133,16 @@ class ResidentPair:
         self.has_alias = has_alias
         self.stats = stats
         self.views: list[Optional[BlockView]] = [None, None]
-        # pack-once-per-slot-change: packed segment + caps, keyed by the view
-        # object resident in the slot (views are immutable once built)
-        self._packed: list = [None, None]
-        # block id -> (args, v_iters, resident bytes) of its full view alone
-        # in both slots, least recently used first
+        # block id -> device segment of its full view, least recently used first
         self._kept: "OrderedDict[int, tuple]" = OrderedDict()
+        # the alias arguments of a pair without alias tables
+        self._no_alias = (
+            torch.zeros(1, dtype=torch.int32, device=self.device),
+            torch.ones(1, dtype=torch.float32, device=self.device),
+        )
 
     def set_slot(self, s: int, view: BlockView) -> None:
-        if self.views[s] is not view:
-            self._packed[s] = None
         self.views[s] = view
-
-    def _packed_segment(self, s: int):
-        view = self.views[s]
-        if self._packed[s] is None:
-            vc, ec = self._caps(view)
-            self._packed[s] = (self._pack_segment(view, vc, ec, self.has_alias), vc, ec)
-        return self._packed[s]
 
     # -- packing --------------------------------------------------------------
     def _caps(self, view: BlockView) -> Tuple[int, int]:
@@ -157,87 +155,90 @@ class ResidentPair:
         ec = min(pow2_pad(view.nedges, self.E_FLOOR), self.bg.max_block_edges)
         return max(vc, view.nverts), max(ec, view.nedges)
 
-    @staticmethod
-    def _pack_segment(view: BlockView, vc: int, ec: int, has_alias: bool):
-        vids = np.full(vc, VID_PAD, np.int32)
-        vids[: view.nverts] = view.vids
-        indptr = np.full(vc + 1, view.nedges, np.int32)
-        indptr[: view.nverts + 1] = view.indptr
-        indices = np.full(ec, -1, np.int32)
-        indices[: view.nedges] = view.indices
-        if has_alias:
-            aj = np.zeros(ec, np.int32)
-            aq = np.ones(ec, np.float32)
-            if view.alias_j is not None:
-                aj[: view.nedges] = view.alias_j
-                aq[: view.nedges] = view.alias_q
+    def _copy_in(self, dst: torch.Tensor, host: np.ndarray) -> None:
+        """Copy ``host`` into the device tensor ``dst`` of its shape."""
+        if self.device.type == "cuda":
+            # a fresh page-locked tensor for each copy: the caching host
+            # allocator hands its memory out again only once the copy is done
+            staged = torch.empty(dst.shape, dtype=dst.dtype, pin_memory=True)
+            staged.numpy()[...] = host
+            dst.copy_(staged, non_blocking=True)
         else:
-            aj = np.zeros(1, np.int32)
-            aq = np.ones(1, np.float32)
-        return vids, indptr, indices, aj, aq
+            dst.numpy()[...] = host
+
+    def _padded(self, cap: int, dtype: torch.dtype, fill, host: Optional[np.ndarray]):
+        """A device array of ``cap`` entries: ``host`` at its head, ``fill``
+        after it."""
+        out = torch.empty(cap, dtype=dtype, device=self.device)
+        n = 0 if host is None else len(host)
+        if n < cap:
+            out[n:].fill_(fill)
+        if n:
+            self._copy_in(out[:n], host)
+        return out
+
+    def _build(self, view: BlockView) -> tuple:
+        """Pack ``view`` into a device segment: ``(vids, indptr, indices,
+        alias_j, alias_q, vc, ec)``, the alias pair ``None`` without alias
+        tables."""
+        spans.count("pair.segment.built")
+        vc, ec = self._caps(view)
+        i32 = torch.int32
+        vids = self._padded(vc, i32, int(VID_PAD), view.vids)
+        indptr = self._padded(vc + 1, i32, view.nedges, view.indptr)
+        indices = self._padded(ec, i32, -1, view.indices)
+        alias_j = alias_q = None
+        if self.has_alias:
+            alias_j = self._padded(ec, i32, 0, view.alias_j)
+            alias_q = self._padded(ec, torch.float32, 1.0, view.alias_q)
+        return vids, indptr, indices, alias_j, alias_q, vc, ec
+
+    def _segment(self, view: BlockView) -> tuple:
+        """The device segment of ``view``: a kept full view's, or built."""
+        if view.kind != "full":
+            return self._build(view)
+        seg = self._kept.pop(view.block_id, None)
+        if seg is None:
+            seg = self._build(view)
+        else:
+            spans.count("pair.segment.kept")
+        self._kept[view.block_id] = seg
+        while len(self._kept) > self.keep_full:
+            self._kept.popitem(last=False)
+        return seg
 
     def device_args(self):
-        """Pack both slots into the kernel's flat ragged arrays.  Returns
+        """The kernel's flat ragged arrays for both slots.  Returns
         ``(args, v_iters)`` — ``v_iters`` is the static binary-search depth
         for the remap lookup at this padded size."""
         v0, v1 = self.views
-        if self.keep_full and v1 is v0 and v0.kind == "full":
-            kept = self._kept.pop(v0.block_id, None)
-            if kept is None:
-                kept = self._upload()
-            self._kept[v0.block_id] = kept
-            while len(self._kept) > self.keep_full:
-                self._kept.popitem(last=False)
+        seg0 = self._segment(v0)
+        if v1 is v0:
+            segs = [seg0]
+            vids, indptr, indices, alias_j, alias_q = seg0[:5]
+            meta = [[v0.nverts, v0.nverts], [0, 0], [0, 0], [0, 0]]
         else:
-            kept = self._upload()
-        args, v_iters, nbytes = kept
+            segs = [seg0, self._segment(v1)]
+            vids, indptr, indices, alias_j, alias_q = (
+                None if seg0[k] is None else torch.cat([seg[k] for seg in segs])
+                for k in range(5)
+            )
+            vc0, ec0 = seg0[5:]
+            meta = [[v0.nverts, v1.nverts], [0, vc0], [0, vc0 + 1], [0, ec0]]
+        if not self.has_alias:
+            alias_j, alias_q = self._no_alias
+        # nverts and the three bases in one copy
+        meta_dev = torch.empty((4, 2), dtype=torch.int32, device=self.device)
+        self._copy_in(meta_dev, np.array(meta, np.int32))
+        nverts, vid_base, ptr_base, ind_base = meta_dev.unbind(0)
         if self.stats is not None:
+            nbytes = 4 * (vids.numel() + indptr.numel() + indices.numel())
+            if self.has_alias:
+                nbytes += 8 * indices.numel()
             self.stats.note_resident(nbytes)
+        v_iters = remap_search_iters(max(seg[5] for seg in segs))
+        args = (vids, nverts, vid_base, indptr, ptr_base, indices, ind_base, alias_j, alias_q)
         return args, v_iters
-
-    def _upload(self):
-        """Pack the slots and copy them to the device: ``(args, v_iters,
-        resident bytes)``."""
-        v0, v1 = self.views
-        dedupe = v1 is v0
-        slots = [0] if dedupe else [0, 1]
-        segs = []
-        packed = []
-        for s in slots:
-            p, vc, ec = self._packed_segment(s)
-            segs.append((self.views[s], vc, ec))
-            packed.append(p)
-        vids = np.concatenate([p[0] for p in packed])
-        indptr = np.concatenate([p[1] for p in packed])
-        indices = np.concatenate([p[2] for p in packed])
-        if self.has_alias:
-            alias_j = np.concatenate([p[3] for p in packed])
-            alias_q = np.concatenate([p[4] for p in packed])
-        else:
-            alias_j = np.zeros(1, np.int32)
-            alias_q = np.ones(1, np.float32)
-        vc0 = segs[0][1]
-        ec0 = segs[0][2]
-        if dedupe:
-            nverts = np.array([v0.nverts, v0.nverts], np.int32)
-            vid_base = np.array([0, 0], np.int32)
-            ptr_base = np.array([0, 0], np.int32)
-            ind_base = np.array([0, 0], np.int32)
-        else:
-            nverts = np.array([v0.nverts, v1.nverts], np.int32)
-            vid_base = np.array([0, vc0], np.int32)
-            ptr_base = np.array([0, vc0 + 1], np.int32)
-            ind_base = np.array([0, ec0], np.int32)
-        nbytes = 4 * (vids.size + indptr.size + indices.size)
-        if self.has_alias:
-            nbytes += 8 * indices.size
-        max_cap = max(vc for _, vc, _ in segs)
-        v_iters = remap_search_iters(max_cap)
-        args = tuple(
-            torch.as_tensor(a, device=self.device)
-            for a in (vids, nverts, vid_base, indptr, ptr_base, indices, ind_base, alias_j, alias_q)
-        )
-        return args, v_iters, nbytes
 
 
 class EngineBase:
@@ -396,8 +397,6 @@ class EngineBase:
             self._pending_init_src = src
             self.unfinished = self.num_walks
             self.pair = ResidentPair(bg, self.has_alias, self.stats, self.device)
-            if self.order == 1:
-                self.pair.keep_full = 2
             self._closed = False
 
     # -- pool plumbing ("disk" walk I/O) --------------------------------------

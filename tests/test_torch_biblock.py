@@ -137,44 +137,168 @@ def test_biblock_deepwalk_first_order_matches_jax(tmp_path, loading):
     assert _sig(runs["torch"]) == _sig(runs["jax"])
 
 
-@pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("loading", ["full", "auto"])
-def test_first_order_pair_uploads_each_full_view_once(monkeypatch, loading, weighted):
-    """On 2 blocks a DeepWalk pair keeps both blocks' full views on its
-    device: each is uploaded once a run, not once a visit, and the walks,
-    charges and peak gauge are those of a pair that uploads every visit
-    and of the JAX package."""
+#: IOStats charges that do not depend on wall clock or thread timing
+CHARGES = (
+    "block_ios", "block_bytes", "vertex_ios", "vertex_bytes", "walk_ios", "walk_bytes",
+    "walk_bytes_written", "walk_bytes_read", "ondemand_ios", "ondemand_bytes",
+    "ondemand_syscalls", "coalesced_ranges", "coalesce_waste_bytes", "peak_resident_bytes",
+    "time_slots", "supersteps", "steps_sampled", "bucket_executions", "sim_block_io_time",
+    "sim_vertex_io_time", "sim_ondemand_io_time",
+)  # fmt: skip
+
+
+def _charges(res):
+    return [getattr(res.stats, k) for k in CHARGES] + [dict(res.stats.per_block_loads)]
+
+
+def _kept_and_fresh_runs(monkeypatch, tbg, ttask, **kw):
+    """Runs of one task through a pair that keeps its full views (the
+    engine's) and one that keeps none; each with the ``(block, kind)`` of
+    every segment its pair built."""
     from repro_torch.engines.base import ResidentPair
 
-    jbg, tbg = (_weighted_graphs if weighted else _graphs)(seed=5, nv=200, nblocks=2)
-    jtask, ttask = _tasks(1, seed=5)
-    uploads = []
-    upload = ResidentPair._upload
+    builds = []
+    build = ResidentPair._build
 
-    def counted(pair):
-        uploads.append(pair.views[0].kind)
-        return upload(pair)
+    def counted(pair, view):
+        builds.append((view.block_id, view.kind))
+        return build(pair, view)
 
-    monkeypatch.setattr(ResidentPair, "_upload", counted)
-    kw = dict(loading=loading, record_walks=True, async_pipeline=False)
+    monkeypatch.setattr(ResidentPair, "_build", counted)
     runs = {}
     for keep in (2, 0):
         eng = TBiBlockEngine(tbg, ttask, device="cpu", advance_impl="torch", **kw)
         assert eng.pair.keep_full == 2
         eng.pair.keep_full = keep
-        uploads.clear()
-        runs[keep] = (eng.run(), list(uploads))
-    (kept, kept_up), (fresh, fresh_up) = runs[2], runs[0]
-    assert kept_up.count("full") == 2 < fresh_up.count("full")
-    assert kept_up.count("activated") == fresh_up.count("activated")
+        builds.clear()
+        runs[keep] = (eng.run(), list(builds))
+    return runs[2], runs[0]
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("loading", ["full", "auto"])
+def test_first_order_pair_uploads_each_full_view_once(monkeypatch, loading, weighted):
+    """On 2 blocks a DeepWalk pair keeps both blocks' full views on its
+    device: each is built and uploaded once a run, not once a visit, and
+    the walks, charges and peak gauge are those of a pair that uploads
+    every visit and of the JAX package."""
+    jbg, tbg = (_weighted_graphs if weighted else _graphs)(seed=5, nv=200, nblocks=2)
+    jtask, ttask = _tasks(1, seed=5)
+    kw = dict(loading=loading, record_walks=True, async_pipeline=False)
+    (kept, kept_up), (fresh, fresh_up) = _kept_and_fresh_runs(monkeypatch, tbg, ttask, **kw)
+    kinds, fresh_kinds = [k for _, k in kept_up], [k for _, k in fresh_up]
+    assert kinds.count("full") == 2 < fresh_kinds.count("full")
+    assert kinds.count("activated") == fresh_kinds.count("activated")
     assert _sig(kept) == _sig(fresh)
     assert _sig(kept) == _sig(JBiBlockEngine(jbg, jtask, **kw).run())
 
 
-def test_second_order_pair_keeps_no_view():
-    _, tbg = _graphs()
-    _, ttask = _tasks(2)
-    assert TBiBlockEngine(tbg, ttask, device="cpu", advance_impl="torch").pair.keep_full == 0
+def _node2vec_tasks(traffic, tbg, seed=5):
+    """A node2vec RWNV task or a PRNV query from the vertex of most edges,
+    for both packages."""
+    from repro.core import prnv_task as j_prnv
+    from repro_torch.core import prnv_task as t_prnv
+
+    if traffic == "rwnv":
+        return _tasks(2, seed)
+    deg = np.diff(tbg.graph.indptr)
+    kw = dict(p=3.0, q=0.5, length=6, samples_per_vertex=2, seed=seed)
+    src = int(np.argmax(deg))
+    return j_prnv(src, tbg.num_vertices, **kw), t_prnv(src, tbg.num_vertices, **kw)
+
+
+@pytest.mark.parametrize("traffic", ["rwnv", "prnv"])
+@pytest.mark.parametrize("loading", ["full", "auto"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("nblocks", [2, 8])
+def test_second_order_pair_keeps_full_views(monkeypatch, nblocks, weighted, loading, traffic):
+    """A node2vec pair keeps its full views on its device too: the walks,
+    endpoint counts, corpus, every IOStats charge and the peak gauge equal
+    those of a pair that keeps none and of the JAX package; on 2 blocks
+    each block's full view is built once a run."""
+    jbg, tbg = (_weighted_graphs if weighted else _graphs)(seed=5, nv=200, nblocks=nblocks)
+    jtask, ttask = _node2vec_tasks(traffic, tbg)
+    kw = dict(loading=loading, record_walks=True, async_pipeline=False)
+    (kept, kept_up), (fresh, fresh_up) = _kept_and_fresh_runs(monkeypatch, tbg, ttask, **kw)
+    want = JBiBlockEngine(jbg, jtask, **kw).run()
+    assert _sig(kept) == _sig(fresh) == _sig(want)
+    assert _charges(kept) == _charges(fresh) == _charges(want)
+    assert kept.advance_calls == fresh.advance_calls > 0
+    full = [b for b, k in kept_up if k == "full"]
+    fresh_full = [b for b, k in fresh_up if k == "full"]
+    assert [k for _, k in kept_up if k != "full"] == [k for _, k in fresh_up if k != "full"]
+    assert len(full) < len(fresh_full)
+    if nblocks == 2:
+        assert sorted(full) == sorted(set(fresh_full)) == [0, 1]
+
+
+def _pair_calls(jbg, tbg):
+    """A run of slot changes an engine makes, as ``(slot, view)`` lists of
+    each call, for both packages: slot 0 fixed while slot 1 goes from a full
+    view to an activated one, to that view extended, to another block's
+    full view; then slot 0 changes; then both slots hold one view."""
+    from repro.core.graph import BlockView as JBlockView
+    from repro_torch.core.graph import BlockView as TBlockView
+
+    out = []
+    for bg, view_cls in ((jbg, JBlockView), (tbg, TBlockView)):
+        full = lambda b: view_cls.from_resident(bg.materialize_block(b))  # noqa: E731
+        s, e = int(bg.block_starts[2]), int(bg.block_starts[3])
+        act = bg.partial_view(2, np.arange(s, e, 3))
+        ext = act.extended(bg.partial_view(2, np.arange(s + 1, e, 3)))
+        both = full(1)
+        out.append(
+            [
+                [(0, full(0)), (1, full(1))],
+                [(1, act)],
+                [(1, ext)],
+                [(1, full(3))],
+                [(0, full(3)), (1, full(1))],
+                [(0, both), (1, both)],
+                [(0, ext), (1, ext)],
+            ]
+        )
+    return out
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_pair_packing_sequence_matches_jax(weighted):
+    """Over a run of ``set_slot`` / ``device_args`` calls the port's pair,
+    which keeps full-view segments on its device and assembles the pair
+    there, returns the JAX package's packed arrays byte for byte, with the
+    same ``v_iters``; the counters say which segments were built and which
+    kept."""
+    from repro.engines.base import ResidentPair as JResidentPair
+    from repro_torch.core import spans
+    from repro_torch.engines.base import ResidentPair as TResidentPair
+
+    jbg, tbg = (_weighted_graphs if weighted else _graphs)(seed=5, nv=200, nblocks=4)
+    jpair = JResidentPair(jbg, weighted)
+    tpair = TResidentPair(tbg, weighted, device="cpu")
+    # (built, kept) a call: block 0's full view stays kept while slot 1
+    # changes; block 1's, dropped for block 3's, is built again, and then
+    # kept; activated views are built every call
+    want_counts = [(2, 0), (1, 1), (1, 1), (1, 1), (1, 1), (0, 1), (1, 0)]
+    spans.take()
+    spans.enable()
+    try:
+        for jcall, tcall, counts in zip(*_pair_calls(jbg, tbg), want_counts):
+            for s, v in jcall:
+                jpair.set_slot(s, v)
+            for s, v in tcall:
+                tpair.set_slot(s, v)
+            jargs, jv = jpair.device_args()
+            targs, tv = tpair.device_args()
+            _, got = spans.take()
+            assert (got.get("pair.segment.built", 0), got.get("pair.segment.kept", 0)) == counts
+            assert tv == jv
+            for a, b in zip(jargs, targs):
+                a, b = np.asarray(a), b.numpy()
+                assert b.dtype == a.dtype and b.shape == a.shape
+                assert b.tobytes() == a.tobytes()
+    finally:
+        spans.disable()
+        spans.take()
 
 
 @pytest.mark.parametrize("loading", ["full", "ondemand"])

@@ -394,6 +394,65 @@ def test_engine_device_corpus_matches_cpu(cuda, monkeypatch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+def test_device_built_pair_matches_cpu(cuda, weighted):
+    """The card's pair, its segments built through page-locked staging, kept
+    by block and assembled on the card, gives the CPU pair's arrays byte for
+    byte over a run of slot changes: slot 1 full, activated, extended and
+    another block's full view beside a fixed slot 0, then a new slot 0, then
+    one view in both slots."""
+    bg = _graph(weighted)
+    full = lambda b: BlockView.from_resident(bg.materialize_block(b))  # noqa: E731
+    act = bg.partial_view(2, np.arange(2000, 3000, 3))
+    ext = act.extended(bg.partial_view(2, np.arange(2001, 3000, 3)))
+    both = full(1)
+    calls = [
+        [(0, full(0)), (1, full(1))], [(1, act)], [(1, ext)], [(1, full(2))],
+        [(0, full(2)), (1, full(1))], [(0, both), (1, both)], [(0, ext), (1, ext)],
+    ]  # fmt: skip
+    cpu = ResidentPair(bg, weighted, device="cpu")
+    card = ResidentPair(bg, weighted, device=cuda)
+    for call in calls:
+        for s, v in call:
+            cpu.set_slot(s, v)
+            card.set_slot(s, v)
+        want, wv = cpu.device_args()
+        got, gv = card.device_args()
+        assert gv == wv
+        for a, b in zip(got, want):
+            assert a.device.type == "cuda" and a.is_contiguous()
+            a = a.cpu().numpy()
+            assert a.dtype == b.numpy().dtype and a.tobytes() == b.numpy().tobytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+def test_engine_ondemand_on_card_matches_cpu(cuda, weighted):
+    """An 8-block run with on-demand loading, whose pair stages a new
+    activated view through page-locked memory at almost every call, walks
+    on the card exactly as on the CPU: no staging buffer was written again
+    before its copy had completed."""
+    from repro_torch.core import partition_into_n_blocks, rwnv_task
+
+    g = erdos_renyi(4000, 32000, seed=6)
+    if weighted:
+        w = np.random.default_rng(6).uniform(0.1, 2.0, g.indices.shape).astype(np.float32)
+        g = CSRGraph(g.indptr, g.indices, w)
+    starts = partition_into_n_blocks(g, 8).block_starts
+    bg = BlockedGraph(g, starts, build_alias=weighted)
+    task = rwnv_task(p=4.0, q=0.25, walks_per_vertex=2, length=10, seed=6)
+    kw = dict(loading="ondemand", record_walks=True, async_pipeline=False)
+    cpu = BiBlockEngine(bg, task, device="cpu", advance_impl="torch", **kw).run()
+    card = BiBlockEngine(bg, task, device=cuda, **kw).run()
+    assert card.advance_calls == cpu.advance_calls > 8
+    assert card.stats.ondemand_ios == cpu.stats.ondemand_ios > 0
+    np.testing.assert_array_equal(card.corpus, cpu.corpus)
+    np.testing.assert_array_equal(card.endpoint_counts, cpu.endpoint_counts)
+    assert card.steps_sampled == cpu.steps_sampled
+    assert card.stats.peak_resident_bytes == cpu.stats.peak_resident_bytes
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("max_hops", [1, 2])
 @pytest.mark.parametrize("order", [1, 2])
 def test_kernel_max_hops_matches_plain_version(cuda, order, max_hops):

@@ -105,9 +105,14 @@ def test_profile_walk_covers_every_engine_of_the_run(capsys):
         assert table[name]["n"] > 0 and table[name]["self_s"] >= 0, name
     assert table["advance.exec"]["n"] == table["advance"]["n"]
     assert sum(report["counts"].values()) > 0  # biblock's loader decisions
-    assert set(report["counts"]) <= {"load.full", "load.ondemand"}
+    assert set(report["counts"]) <= {
+        "load.full", "load.ondemand", "pair.segment.built", "pair.segment.kept",
+    }  # fmt: skip
+    assert report["counts"]["pair.segment.built"] > 0
     printed = {line.split()[-1] for line in out if line.startswith("[spans] ")}
     assert printed == set(table)
+    counted = {line.split()[-1] for line in out if line.startswith("[counts] ")}
+    assert counted == set(report["counts"])
     assert spans.span("advance") is spans.NO_SPAN  # off again
 
 

@@ -274,7 +274,13 @@ def test_advance_exec_adds_up_to_exec_time(runs):
 
 def test_loader_decisions_add_up_to_the_buckets(runs):
     _, on, got, counts = runs
-    assert set(counts) <= {"load.full", "load.ondemand", "corpus.device", "slot.visits"}
+    assert set(counts) <= {
+        "load.full", "load.ondemand", "corpus.device", "slot.visits", "pair.segment.built",
+        "pair.segment.kept",
+    }  # fmt: skip
+    # each call's one or two distinct views, each built or kept
+    segments = counts.get("pair.segment.built", 0) + counts.get("pair.segment.kept", 0)
+    assert on.advance_calls <= segments <= 2 * on.advance_calls
     n = counts.get("load.full", 0) + counts.get("load.ondemand", 0)
     assert n == on.stats.bucket_executions > 0
     decided = [s for s in got if s.name == "load" and "decision" in s.attrs]
