@@ -34,10 +34,11 @@ Phases (each raises on failure, so the script exits non-zero):
    oracle (``use_kernel=False``), bitwise, on a pair of the phase-4 graph,
    for (p, q) in {(1, 1), (4, 0.25)}, plus an alias case and ``alias_step``;
 4. whole runs — ``BiBlockEngine`` (unweighted, then weighted through the
-   alias tables), then PB, SOGW, SGSC and ``InMemoryWalker``, each with
-   ``advance_impl="cuda"`` against ``"torch"`` on a 20k-vertex graph:
-   endpoint counts, corpus, steps and deterministic I/O charges must be
-   identical, and every engine must equal the oracle;
+   alias tables), then PB, SOGW, SGSC and ``InMemoryWalker``, each on the
+   card (the kernel) against the same engine with ``device="cpu"`` (the
+   plain version) on a 20k-vertex graph: endpoint counts, corpus, steps and
+   deterministic I/O charges must be identical, and every engine must
+   equal the oracle;
 5. main paths — ``python -m repro_torch.launch.walk`` (in-process) with
    rwnv p=4 q=0.25 on a 1M-vertex, 16M-edge-entry graph in 16 blocks, 1M
    walks of length 20: ``--engine biblock --engine oracle`` (biblock's
@@ -48,8 +49,8 @@ Phases (each raises on failure, so the script exits non-zero):
    per advance;
 6. serving — ``repro_torch.serve.WalkQueryServer`` on the card: (6a) on the
    phase-4 graph, 256 skewed queries in batches of 64 with 2 hot blocks,
-   ``advance_impl="cuda"`` against ``"torch"``: equal answers and
-   deterministic charges; (6b) on the main path's graph, 2,048 PPR queries
+   on the card against ``device="cpu"``: equal answers and deterministic
+   charges; (6b) on the main path's graph, 2,048 PPR queries
    (p=4, q=0.25, length 20, decay 0.85, 32 walks each; 85% from block 0)
    in two admission batches of 1,024 queries (32,768 walks), served with 2
    hot blocks and with pure LRU: equal answers, fewer block loads with
@@ -105,7 +106,8 @@ Phases (each raises on failure, so the script exits non-zero):
 10. distributed — ``repro_torch.core.distributed.DistributedWalkEngine``
    on ``torch.distributed``: (10a) NCCL, world size 1, a ``(1, 1)``
    ``DeviceMesh``, phase 5's graph and task in one block, through the
-   kernel and through ``advance_impl="torch"``: the global arrays and
+   kernel, against the same run with ``device="cpu"`` in a one-rank gloo
+   group: the global arrays and
    sweeps bitwise equal, the endpoint counts equal to phase 5's oracle, and
    the kernel against its plain version on the advance's own inputs (the
    first round's pair and lanes, the unrouted rows dead at prev -1),
@@ -114,7 +116,7 @@ Phases (each raises on failure, so the script exits non-zero):
    processes sharing the card, a DIST_VERTICES-vertex graph in DIST_RANKS
    blocks on a ``(1, DIST_RANKS)`` mesh through the kernel: every rank's
    global arrays bitwise equal to a ``(1, 1)`` run of the same graph in one
-   block through the plain version.  Each child is bounded by
+   block through the plain version on the CPU.  Each child is bounded by
    DIST_TIMEOUT seconds, and a failed child fails the phase.
 11. MoE / MLA serving — ``repro_torch.models.{moe,mla}`` in deepseek-v2-236b
    (MLA + MoE with 2 shared experts, 160 routed top-6) and mixtral-8x22b
@@ -674,8 +676,9 @@ def _whole_graph(weighted=False):
 
 
 def phase_whole_run(dev):
-    """Phase 4: whole bi-block runs, kernel against plain version: the
-    unweighted graph, then a weighted one (alias proposals)."""
+    """Phase 4: whole bi-block runs, the kernel on the card against the
+    plain version on the CPU: the unweighted graph, then a weighted one
+    (alias proposals)."""
     from repro_torch.core import rwnv_task
     from repro_torch.engines import BiBlockEngine
     from repro_torch.kernels.pair_advance import fused_advance_pair
@@ -685,24 +688,24 @@ def phase_whole_run(dev):
     for leg, weighted in (("plain", False), ("weighted", True)):
         bg = _whole_graph(weighted)
         out = {}
-        for impl in ("cuda", "torch"):
+        for name, on in (("cuda", dev), ("cpu", "cpu")):
             before = fused_advance_pair.launches
             t0 = time.perf_counter()
-            res = BiBlockEngine(bg, task, record_walks=True, advance_impl=impl, device=dev).run()
+            res = BiBlockEngine(bg, task, record_walks=True, device=on).run()
             launched = fused_advance_pair.launches - before
-            out[impl] = (res, time.perf_counter() - t0, launched)
-            log(f"[whole] {leg} {impl}: {out[impl][1]:.2f}s, steps {res.steps_sampled}, "
+            out[name] = (res, time.perf_counter() - t0, launched)
+            log(f"[whole] {leg} {name}: {out[name][1]:.2f}s, steps {res.steps_sampled}, "
                 f"advance calls {res.advance_calls}, kernel launches {launched}")  # fmt: skip
-        (rc, _, lc), (rt, _, lt) = out["cuda"], out["torch"]
+        (rc, _, lc), (rt, _, lt) = out["cuda"], out["cpu"]
         if _sig(rc) != _sig(rt):
-            raise AssertionError(f"whole run ({leg}): cuda and torch signatures differ")
+            raise AssertionError(f"whole run ({leg}): cuda and cpu signatures differ")
         if lc != rc.advance_calls or lc == 0 or lt != 0:
             raise AssertionError(
                 f"whole run ({leg}): launches {lc}/{lt} vs advance calls {rc.advance_calls}"
             )
         if rc.endpoint_counts.sum() != rc.num_walks or (rc.corpus[:, 0] < 0).any():
             raise AssertionError(f"whole run ({leg}): walks unaccounted for")
-        legs[leg] = dict(seconds_cuda=out["cuda"][1], seconds_torch=out["torch"][1],
+        legs[leg] = dict(seconds_cuda=out["cuda"][1], seconds_cpu=out["cpu"][1],
                          steps=rc.steps_sampled, advance_calls=rc.advance_calls)  # fmt: skip
     return legs
 
@@ -899,8 +902,9 @@ def phase_tier(dev):
 
 
 def phase_other_engines(dev):
-    """Phase 4b: whole PB, SOGW, SGSC and oracle runs, kernel against plain
-    version, and every engine against the oracle."""
+    """Phase 4b: whole PB, SOGW, SGSC and oracle runs, the kernel on the
+    card against the plain version on the CPU, and every engine against the
+    oracle."""
     from repro_torch.core import rwnv_task
     from repro_torch.engines import InMemoryWalker, PlainBucketEngine, SOGWEngine
     from repro_torch.kernels.pair_advance import fused_advance_pair
@@ -916,24 +920,24 @@ def phase_other_engines(dev):
     out, oracle = {}, None
     for name, make in makers.items():
         runs = {}
-        for impl in ("cuda", "torch"):
+        for leg, on in (("cuda", dev), ("cpu", "cpu")):
             before = fused_advance_pair.launches
             t0 = time.perf_counter()
-            res = make(dict(advance_impl=impl, device=dev)).run()
-            runs[impl] = (res, time.perf_counter() - t0, fused_advance_pair.launches - before)
-        (rc, sc, lc), (rt, st, lt) = runs["cuda"], runs["torch"]
-        log(f"[engines] {name}: cuda {sc:.2f}s / torch {st:.2f}s, steps {rc.steps_sampled}, "
+            res = make(dict(device=on)).run()
+            runs[leg] = (res, time.perf_counter() - t0, fused_advance_pair.launches - before)
+        (rc, sc, lc), (rt, st, lt) = runs["cuda"], runs["cpu"]
+        log(f"[engines] {name}: cuda {sc:.2f}s / cpu {st:.2f}s, steps {rc.steps_sampled}, "
             f"advance calls {rc.advance_calls}, kernel launches {lc}, vertex_ios "
             f"{rc.stats.vertex_ios}")  # fmt: skip
         if _sig(rc) != _sig(rt) or rc.stats.vertex_ios != rt.stats.vertex_ios:
-            raise AssertionError(f"{name}: cuda and torch signatures differ")
+            raise AssertionError(f"{name}: cuda and cpu signatures differ")
         if lc != rc.advance_calls or lc == 0 or lt != 0:
             raise AssertionError(f"{name}: launches {lc}/{lt} vs advance calls {rc.advance_calls}")
         oracle = rc if name == "oracle" else oracle
         same_counts = (rc.endpoint_counts == oracle.endpoint_counts).all()
         if not same_counts or (rc.corpus != oracle.corpus).any():
             raise AssertionError(f"{name}: walks differ from the oracle's")
-        out[name] = dict(seconds_cuda=sc, seconds_torch=st, steps=rc.steps_sampled,
+        out[name] = dict(seconds_cuda=sc, seconds_cpu=st, steps=rc.steps_sampled,
                          advance_calls=rc.advance_calls, launches=lc,
                          vertex_ios=rc.stats.vertex_ios, block_ios=rc.stats.block_ios)  # fmt: skip
     return out
@@ -1028,13 +1032,13 @@ def _serve(bg, sources, config, **kw):
         bucket_hist_launches=hist_launches, block_ios=s.block_ios,
         hot_pinned_blocks=s.hot_pinned_blocks, pinned_block_hits=s.pinned_block_hits,
         pinned_bytes_saved=s.pinned_bytes_saved, ondemand_ios=s.ondemand_ios,
-        steps=s.steps_sampled, **{k: kw[k] for k in ("hot_blocks", "advance_impl") if k in kw},
+        steps=s.steps_sampled, hot_blocks=kw.get("hot_blocks"), device=str(server.device),
     )  # fmt: skip
-    if kw.get("advance_impl", "cuda") == "cuda":
+    if server.device.type == "cuda":
         if launches == 0 or launches != server.advance_calls:
             raise AssertionError(f"server: {launches} launches for {server.advance_calls} advances")
     elif launches != 0:
-        raise AssertionError(f"server on the plain version launched the kernel {launches} times")
+        raise AssertionError(f"server on the CPU launched the kernel {launches} times")
     for a in answers:
         if int(a.counts.sum()) != a.num_walks:
             raise AssertionError(f"query {a.qid}: {int(a.counts.sum())} of {a.num_walks} walks")
@@ -1052,8 +1056,8 @@ def _same_answers(xs, ys) -> bool:
 
 
 def phase_serve(dev):
-    """Phase 6: the query server on the card (6a kernel against plain
-    version, 6b the main path's graph, hot set against LRU and served
+    """Phase 6: the query server on the card (6a the card against the
+    CPU, 6b the main path's graph, hot set against LRU and served
     against direct, 6c the launcher)."""
     import zlib
 
@@ -1070,19 +1074,19 @@ def phase_serve(dev):
     config = QueryConfig(**SERVE_CONFIG)
     mix = lambda bg, n: serve_launcher.skewed_sources(bg, n, SERVE_SKEW, np.random.default_rng(7))
     out = {}
-    # 6a: kernel against plain version, both on the card
+    # 6a: the kernel on the card against the plain version on the CPU
     bg = _whole_graph()
     sources = mix(bg, 256)
-    runs = {impl: _serve(bg, sources, config, max_batch=64, hot_blocks=2, device=dev,
-                         advance_impl=impl) for impl in ("cuda", "torch")}  # fmt: skip
-    (sc, ac, ic), (st, at, it) = runs["cuda"], runs["torch"]
+    runs = {leg: _serve(bg, sources, config, max_batch=64, hot_blocks=2, device=on)
+            for leg, on in (("cuda", dev), ("cpu", "cpu"))}  # fmt: skip
+    (sc, ac, ic), (st, at, it) = runs["cuda"], runs["cpu"]
     log(f"[serve] 6a cuda {json.dumps(ic)}")
-    log(f"[serve] 6a torch {json.dumps(it)}")
+    log(f"[serve] 6a cpu {json.dumps(it)}")
     if not _same_answers(ac, at):
-        raise AssertionError("6a: cuda and torch servers answer differently")
+        raise AssertionError("6a: cuda and cpu servers answer differently")
     if _charges(sc.stats) != _charges(st.stats) or sc.advance_calls != st.advance_calls:
-        raise AssertionError("6a: cuda and torch servers charge differently")
-    out["6a"] = dict(cuda=ic, torch=it)
+        raise AssertionError("6a: cuda and cpu servers charge differently")
+    out["6a"] = dict(cuda=ic, cpu=it)
 
     # 6b: the main path's graph, hot set against pure LRU
     t0 = time.perf_counter()
@@ -1090,7 +1094,7 @@ def phase_serve(dev):
     bg = partition_into_n_blocks(g, BLOCKS)
     log(f"[serve] 6b graph built in {time.perf_counter() - t0:.1f}s: {bg.describe()}")
     sources = mix(bg, SERVE_QUERIES)
-    kw = dict(max_batch=SERVE_BATCH, device=dev, advance_impl="cuda")
+    kw = dict(max_batch=SERVE_BATCH, device=dev)
     hot, hot_ans, hot_info = _serve(bg, sources, config, hot_blocks=2, **kw)
     log(f"[serve] 6b hot-set {json.dumps(hot_info)}")
     lru, lru_ans, lru_info = _serve(bg, sources, config, hot_blocks=0, **kw)
@@ -1110,7 +1114,7 @@ def phase_serve(dev):
         before = fused_advance_pair.launches
         t1 = time.perf_counter()
         direct = BiBlockEngine(
-            bg, config.task(hot.batch_seed(k)), device=dev, advance_impl="cuda",
+            bg, config.task(hot.batch_seed(k)), device=dev,
             initial_walks=np.repeat([a.source for a in batch], config.samples),
             async_pipeline=True,
         ).run()  # fmt: skip
@@ -1684,28 +1688,28 @@ def phase_harness(dev):
         args = launch_train.parse_args(argv)
 
         # the launcher's corpus (its graph, blocks and task) through the
-        # kernel and through the plain advance: equal, bit for bit
-        def corpus_run(impl):
+        # kernel and through the plain advance on the CPU: equal, bit for bit
+        def corpus_run(on):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             g = erdos_renyi(args.graph_vertices, args.graph_vertices * 8, seed=0)
             res = BiBlockEngine(
                 partition_into_n_blocks(g, 6), rwnv_task(walks_per_vertex=2, length=32),
-                record_walks=True, device=dev, advance_impl=impl,
+                record_walks=True, device=on,
             ).run()  # fmt: skip
             corpus = WalkCorpus.from_walks(res.corpus, g.num_vertices)
             torch.cuda.synchronize()
             return corpus, res.corpus, time.perf_counter() - t0
 
         before = fused_advance_pair.launches
-        corpus, walks_cuda, corpus_s = corpus_run("cuda")
+        corpus, walks_cuda, corpus_s = corpus_run(dev)
         compare_launches = fused_advance_pair.launches - before
-        _, walks_plain, plain_s = corpus_run("torch")
+        _, walks_plain, plain_s = corpus_run("cpu")
         corpus_equal = walks_cuda.shape == walks_plain.shape and bool((walks_cuda == walks_plain).all())
         log(f"[lm-harness] 9b the launcher's corpus ({args.graph_vertices:,} vertices, 6 blocks, "
             f"2 walks of 32 steps per vertex): {walks_cuda.shape[0]:,} walks; the kernel "
-            f"{corpus_s:.3f} s ({compare_launches} launches), the plain advance {plain_s:.3f} s; "
-            f"bitwise equal: {corpus_equal}")  # fmt: skip
+            f"{corpus_s:.3f} s ({compare_launches} launches), the plain advance on the CPU "
+            f"{plain_s:.3f} s; bitwise equal: {corpus_equal}")  # fmt: skip
         del walks_plain
         if not corpus_equal:
             raise AssertionError("phase 9b: the kernel's corpus differs from the plain advance's")
@@ -1856,7 +1860,7 @@ def _dist_case(vertices: int, blocks: int):
     return partition_into_n_blocks(g, blocks), task
 
 
-def _dist_run(bg, task, mesh, dev, impl, engine_cls=None):
+def _dist_run(bg, task, mesh, dev, engine_cls=None):
     """One distributed engine run, the launch counts set to 0 just before
     and read just after.  Returns ``(result, info, engine)``."""
     import torch
@@ -1869,14 +1873,15 @@ def _dist_run(bg, task, mesh, dev, impl, engine_cls=None):
     fused_advance_pair.launches = 0
     bucket_hist_kernel.launches = 0
     t0 = time.perf_counter()
-    eng = (engine_cls or DistributedWalkEngine)(bg, task, mesh, device=dev, advance_impl=impl)
+    eng = (engine_cls or DistributedWalkEngine)(bg, task, mesh, device=dev)
     res = eng.run()
     torch.cuda.synchronize()
     engine_s = time.perf_counter() - t0
     exec_s = res["stats"].exec_time
     info = dict(
-        backend=eng.backend, advance=impl, rank=eng.rank, block=eng.block, walks=len(res["cur"]),
-        sweeps=res["sweeps"], rounds=eng.rounds, advance_calls=eng.advance_calls,
+        backend=eng.backend, device=str(eng.device), rank=eng.rank, block=eng.block,
+        walks=len(res["cur"]), sweeps=res["sweeps"], rounds=eng.rounds,
+        advance_calls=eng.advance_calls,
         launches=fused_advance_pair.launches, bucket_hist_launches=bucket_hist_kernel.launches,
         engine_s=engine_s, exec_s=exec_s, exec_share=exec_s / engine_s,
         collective_s=eng.collective_time, walk_ios=res["stats"].walk_ios,
@@ -1902,10 +1907,11 @@ def phase_distributed(dev, oracle_counts, src: str):
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.core.distributed import DistributedWalkEngine
+    from repro_torch.engines.step import remap_search_iters
     from repro_torch.kernels.pair_advance import fused_advance_pair, pair_advance_ref
 
     class Captured(DistributedWalkEngine):
-        """Keeps the first advance's inputs (the comparison run only)."""
+        """Keeps the first advance's inputs."""
 
         def _advance_inputs(self, pair, recv):
             got = super()._advance_inputs(pair, recv)
@@ -1925,14 +1931,8 @@ def phase_distributed(dev, oracle_counts, src: str):
             bg, task = _dist_case(VERTICES, 1)
             log(f"[dist] 10a graph built in {time.perf_counter() - t0:.1f}s: "
                 f"{VERTICES:,} vertices in 1 block")  # fmt: skip
-            res_c, info_c, _ = _dist_run(bg, task, mesh, dev, "cuda")
-            res_t, info_t, eng_t = _dist_run(bg, task, mesh, dev, "torch", Captured)
-            for info in (info_c, info_t):
-                log(f"[dist] 10a {json.dumps(info)}")
-            differ = _same_walks(res_c, res_t)
-            if differ or res_c["sweeps"] != res_t["sweeps"]:
-                raise AssertionError(f"phase 10a: kernel and plain runs differ on {differ}, "
-                                     f"sweeps {res_c['sweeps']} / {res_t['sweeps']}")  # fmt: skip
+            res_c, info_c, eng_c = _dist_run(bg, task, mesh, dev, Captured)
+            log(f"[dist] 10a {json.dumps(info_c)}")
             if res_c["alive"].any():
                 raise AssertionError(f"phase 10a: {int(res_c['alive'].sum())} walks left alive")
             counts = np.bincount(res_c["cur"], minlength=VERTICES)
@@ -1943,7 +1943,12 @@ def phase_distributed(dev, oracle_counts, src: str):
                                      f"{info_c['advance_calls']} advances")  # fmt: skip
             # the kernel against its plain version on the engine's own
             # inputs (these launches are not counted)
-            args, kwargs, rmask = eng_t.captured
+            pair_args, lanes, rmask = eng_c.captured
+            s = eng_c.settings
+            args = (*pair_args, *lanes, s.key, s.length, s.decay, s.p, s.q)
+            kwargs = dict(order=s.order, k_max=s.k_max, n_iters=s.n_iters, record=False,
+                          v_iters=remap_search_iters(bg.max_block_verts),
+                          has_alias=s.has_alias, max_len=s.length)  # fmt: skip
             saved = fused_advance_pair.launches
             got = fused_advance_pair(*args, **kwargs)
             want = pair_advance_ref(*args, **kwargs)
@@ -1965,10 +1970,25 @@ def phase_distributed(dev, oracle_counts, src: str):
             log(f"[dist] 10a kernel vs plain on the first advance's inputs: {json.dumps(check)}")
             if err != 0 or check["dead_at_prev_minus_1"] == 0:
                 raise AssertionError(f"phase 10a: kernel vs plain version: {check}")
-            out["10a"] = dict(cuda=info_c, torch=info_t, kernel_check=check)
-            # 10b's reference: its graph in one block, through the plain version
+        finally:
+            dist.destroy_process_group()
+        # the same run on the CPU, through the plain version, in a one-rank
+        # gloo group; and 10b's reference: its graph in one block, likewise
+        dist.init_process_group("gloo", init_method=f"file://{tmp / 'rdzv_cpu'}", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+        try:
+            mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+            cpu = torch.device("cpu")
+            res_t, info_t, _ = _dist_run(bg, task, mesh, cpu)
+            log(f"[dist] 10a {json.dumps(info_t)}")
+            differ = _same_walks(res_c, res_t)
+            if differ or res_c["sweeps"] != res_t["sweeps"] or info_t["launches"] != 0:
+                raise AssertionError(f"phase 10a: card and CPU runs differ on {differ}, "
+                                     f"sweeps {res_c['sweeps']} / {res_t['sweeps']}, "
+                                     f"CPU launches {info_t['launches']}")  # fmt: skip
+            out["10a"] = dict(cuda=info_c, cpu=info_t, kernel_check=check)
             bgb, taskb = _dist_case(DIST_VERTICES, 1)
-            ref_b, info_ref, _ = _dist_run(bgb, taskb, mesh, dev, "torch")
+            ref_b, info_ref, _ = _dist_run(bgb, taskb, mesh, cpu)
             log(f"[dist] 10b reference (1, 1) {json.dumps(info_ref)}")
         finally:
             dist.destroy_process_group()
@@ -3178,7 +3198,7 @@ def dist_child(rank: int, tmp: str) -> int:
     try:
         mesh = init_device_mesh("cpu", (1, DIST_RANKS), mesh_dim_names=("data", "model"))
         bg, task = _dist_case(DIST_VERTICES, DIST_RANKS)
-        res, info, _ = _dist_run(bg, task, mesh, torch.device("cuda"), "cuda")
+        res, info, _ = _dist_run(bg, task, mesh, torch.device("cuda"))
     finally:
         dist.destroy_process_group()
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -11,7 +11,7 @@ lists and distances as the JAX example.
 
     PYTHONPATH=src python examples/torch_port/pagerank_query.py [--vertices 3000]
         [--samples 256] [--length 20] [--hot-blocks 2]
-        [--advance cuda|torch] [--device cuda|cpu]
+        [--device cuda|cpu]
 """
 
 import argparse
@@ -34,10 +34,9 @@ def main():
     ap.add_argument("--length", type=int, default=20)
     ap.add_argument("--hot-blocks", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--advance", default="cuda", choices=("cuda", "torch"))
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args()
-    device_kw = dict(advance_impl=args.advance, device=args.device)
+    device_kw = dict(device=args.device)
 
     g = barabasi_albert(args.vertices, 6, seed=args.seed)
     bg = partition_into_n_blocks(g, args.blocks)

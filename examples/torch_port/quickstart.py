@@ -1,18 +1,17 @@
 """Quickstart on the PyTorch port: second-order walks on a synthetic graph with GraSorw.
 
 The twin of ``examples/quickstart.py`` on ``repro_torch``: the same
-arguments (plus ``--advance`` and ``--device``, ``cuda`` by default),
-graph, tasks and printed lines; every walk advance runs on the device (the
-CUDA pair advance on the card, its plain PyTorch version with
-``--advance torch``), so the same counts and the same top-8 list as the
-JAX example.
+arguments (plus ``--device``, ``cuda`` by default), graph, tasks and
+printed lines; every walk advance runs on the device (the CUDA pair advance
+on the card, its plain PyTorch version with ``--device cpu``), so the same
+counts and the same top-8 list as the JAX example.
 
 Runs the bi-block engine vs the SOGW baseline on a synthetic graph and
 prints the paper's headline quantities (block I/Os, vertex I/Os, simulated
 wall time), then a PageRank query (PRNV).
 
     PYTHONPATH=src python examples/torch_port/quickstart.py [--vertices 5000]
-        [--blocks 8] [--length 20] [--advance cuda|torch] [--device cuda|cpu]
+        [--blocks 8] [--length 20] [--device cuda|cpu]
 """
 
 import argparse
@@ -40,10 +39,9 @@ def main():
     ap.add_argument("--blocks", type=int, default=8)
     ap.add_argument("--walks-per-vertex", type=int, default=2)
     ap.add_argument("--length", type=int, default=20)
-    ap.add_argument("--advance", default="cuda", choices=("cuda", "torch"))
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args()
-    device_kw = dict(advance_impl=args.advance, device=args.device)
+    device_kw = dict(device=args.device)
 
     n_edges = args.vertices * args.avg_degree // 2
     print(f"building graph ({args.vertices} vertices, ~{2 * n_edges:,} directed edges)...")

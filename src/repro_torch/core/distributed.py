@@ -23,10 +23,11 @@ live frontier in walk-id order and drains it back in block order, then
 scatters each rank its slice.  The other ranks build no pool, and only rank
 0's :class:`IOStats` carries the walk-I/O charges.
 
-The advance is the port's pair advance: the hand-written CUDA kernel
-(:func:`repro_torch.kernels.pair_advance.fused_advance_pair`) or its plain
-PyTorch version, keyed on ``(task seed, walk id, hop)``, so a walk's
-trajectory is that of every other engine, on any mesh.
+The advance is the port's pair advance, called with the settings every
+engine takes (:class:`repro_torch.engines.base.AdvanceSettings`): the
+hand-written CUDA kernel on a card, its plain PyTorch version on the CPU,
+keyed on ``(task seed, walk id, hop)``, so a walk's trajectory is that of
+every other engine, on any mesh.
 
 Where tensors live is the process group backend's rule, not a fallback:
 exchanged tensors (the partner block, routed walks, the gathered and
@@ -48,13 +49,11 @@ from torch.distributed.device_mesh import DeviceMesh
 from repro_torch.core.buckets import push_by_block_assignment
 from repro_torch.core.graph import BlockedGraph
 from repro_torch.core.stats import IOStats
-from repro_torch.core.transition import Node2vec, WalkTask
+from repro_torch.core.transition import WalkTask
 from repro_torch.core.walk import WalkBatch
-from repro_torch.engines.base import resolve_device
-from repro_torch.engines.step import VID_PAD, pair_advance_ref, remap_search_iters
+from repro_torch.engines.base import AdvanceSettings, resolve_device
+from repro_torch.engines.step import VID_PAD, remap_search_iters
 from repro_torch.io import ShardedWalkPool
-from repro_torch.kernels import pair_advance as _pair_advance
-from repro_torch.kernels import rng
 
 __all__ = ["DistributedWalkEngine", "ring_owner_and_round"]
 
@@ -88,9 +87,9 @@ class DistributedWalkEngine:
     to share one across engines — the engine then never closes it).
 
     ``device`` (``"cuda"`` by default; raises without a card) is where the
-    advance runs, ``advance_impl`` picks the CUDA kernel (``"cuda"``) or the
-    plain PyTorch version (``"torch"``).  Exchanged tensors live where the
-    mesh's backend needs them: on ``device`` for NCCL, on the host for gloo.
+    advance runs: the CUDA kernel on a card, the plain PyTorch version on
+    the CPU.  Exchanged tensors live where the mesh's backend needs them: on
+    ``device`` for NCCL, on the host for gloo.
     """
 
     def __init__(
@@ -109,7 +108,6 @@ class DistributedWalkEngine:
         pool_dir: Optional[str] = None,
         stats: Optional[IOStats] = None,
         device: Union[str, torch.device] = "cuda",
-        advance_impl: str = "cuda",
     ):
         names = tuple(mesh.mesh_dim_names or ())
         dims = {ax: names.index(ax) for ax in (*data_axes, block_axis) if ax in names}
@@ -124,10 +122,7 @@ class DistributedWalkEngine:
         if mesh.size() != dist.get_world_size():
             raise ValueError(f"the mesh ({mesh.size()} ranks) must span the world "
                              f"({dist.get_world_size()} ranks)")  # fmt: skip
-        if advance_impl not in ("cuda", "torch"):
-            raise ValueError(f"advance_impl must be 'cuda' or 'torch', got {advance_impl!r}")
         self.device = resolve_device(device)
-        self.advance_impl = advance_impl
         self.bg = bg
         self.task = task
         self.mesh = mesh
@@ -136,7 +131,8 @@ class DistributedWalkEngine:
         self.walk_axes = (*self.data_axes, block_axis)
         self.nb = nb
         self.capacity_factor = capacity_factor
-        self.order = task.model.order
+        self.settings = AdvanceSettings.of(bg, task, k_max=k_max)
+        self.order = self.settings.order
         self.rank = dist.get_rank()
 
         # the backend's rule for exchanged tensors
@@ -195,11 +191,6 @@ class DistributedWalkEngine:
             if stats is None:
                 stats = getattr(pool, "stats", None)
             self.stats = stats if stats is not None else IOStats()
-        first_order = task.model.order == 1
-        trivial_nv = isinstance(task.model, Node2vec) and task.model.p == task.model.q == 1.0
-        self.k_max = 1 if first_order or trivial_nv else k_max
-        self.n_iters = int(np.ceil(np.log2(max(bg.max_block_edges, 2)))) + 2
-        self._base_key = rng.key_halves(task.seed)
         self._block_starts = torch.as_tensor(bg.block_starts.astype(np.int32), device=self.device)
         self._own = self._own_block()
         self._own_dev = self._unpack(self._own)
@@ -387,11 +378,8 @@ class DistributedWalkEngine:
 
     def _advance_inputs(self, pair, recv: torch.Tensor):
         """The pair advance's arguments for the received rows: the padded
-        own + partner pair, one lane per row (rows nobody routed go in as
-        walk 0, not alive), the task's scalars; returns ``(args, kwargs,
-        rows routed)``."""
-        task = self.task
-        length = int(task.length)
+        own + partner pair and one lane per row (rows nobody routed go in as
+        walk 0, not alive); returns ``(pair args, lanes, rows routed)``."""
         mv, me = self.bg.max_block_verts, self.bg.max_block_edges
         (ov, onv, optr, oind, oaj, oaq), (pv, pnv, pptr, pind, paj, paq) = pair
         dev = self.device
@@ -406,32 +394,18 @@ class DistributedWalkEngine:
             torch.cat([ov, pv]), torch.stack([onv, pnv]), i32([0, mv]),
             torch.cat([optr, pptr]), i32([0, mv + 1]), torch.cat([oind, pind]), i32([0, me]),
             alias_j, alias_q,
-            torch.where(rmask, cols[4], 0), cols[0], cols[1], cols[2], (cols[3] > 0) & rmask,
-            self._base_key, length, float(task.decay), float(getattr(task.model, "p", 1.0)),
-            float(getattr(task.model, "q", 1.0)),
         )  # fmt: skip
-        kwargs = dict(
-            order=self.order,
-            k_max=self.k_max,
-            n_iters=self.n_iters,
-            v_iters=remap_search_iters(mv),
-            record=False,
-            has_alias=self.bg.has_weights,
-            max_len=length,
-        )
-        return args, kwargs, rmask
+        lanes = (torch.where(rmask, cols[4], 0), cols[0], cols[1], cols[2], (cols[3] > 0) & rmask)
+        return args, lanes, rmask
 
     def _advance(self, pair, recv: torch.Tensor) -> torch.Tensor:
         """Advance the received rows on the resident pair; returns
         ``[rows, 4]`` (prev, cur, hop, alive), -1 on rows nobody routed."""
-        args, kwargs, rmask = self._advance_inputs(pair, recv)
-        if self.advance_impl == "cuda":
-            advance = _pair_advance.fused_advance_pair
-        else:
-            advance = pair_advance_ref
+        args, lanes, rmask = self._advance_inputs(pair, recv)
+        v_iters = remap_search_iters(self.bg.max_block_verts)
 
         def step():
-            nprev, ncur, nhop, nalive, _, _ = advance(*args, **kwargs)
+            nprev, ncur, nhop, nalive, _, _ = self.settings.advance(args, lanes, v_iters=v_iters)
             back = torch.stack([nprev, ncur, nhop, nalive.to(_I32)], 1)
             return torch.where(rmask[:, None], back, -1)
 

@@ -2,7 +2,7 @@
 
 The port's twin of ``repro.core.engine``: the same names, importable from
 ``repro_torch.core.engine``, with two differences.  The JAX package's
-``advance_pair`` / ``pair_advance_impl`` (its jitted pair advance) have no
+jitted pair advance (``advance_pair`` and the function it wraps) has no
 counterpart here; the port's plain pair advance is ``pair_advance_ref``
 (the kernel is :func:`repro_torch.kernels.fused_advance_pair`).  And
 ``_DeviceBlockPair`` is :class:`ResidentPair`, as it is in the JAX package.

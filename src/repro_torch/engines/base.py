@@ -3,8 +3,10 @@
 The port of ``repro/engines/base.py``: the same packing, bookkeeping and
 storage layer, with the resident pair held as torch tensors on the engine's
 device (``cuda`` unless the caller passes ``device="cpu"``) and the advance
-run by the hand-written CUDA kernel (:mod:`repro_torch.kernels.pair_advance`)
-or its plain PyTorch version.
+run by :func:`repro_torch.kernels.pair_advance.fused_advance_pair`: the
+hand-written CUDA kernel on a card, its plain PyTorch version on the CPU.
+:class:`AdvanceSettings` holds what every advance of a run shares; every
+engine, the in-memory oracle and the distributed engine take it from here.
 
 Every out-of-core engine owns
 
@@ -44,9 +46,11 @@ from repro_torch.io import AsyncWalkPool, BlockStore, ShardedWalkPool, WalkPool,
 from repro_torch.kernels import pair_advance as _pair_advance
 from repro_torch.kernels import rng
 
-from .step import VID_PAD, pair_advance_ref, pow2_pad, remap_search_iters
+from .step import VID_PAD, pow2_pad, remap_search_iters
 
-__all__ = ["WalkResult", "EngineBase", "ResidentPair", "corpus_fits", "resolve_device"]
+__all__ = [
+    "AdvanceSettings", "WalkResult", "EngineBase", "ResidentPair", "corpus_fits", "resolve_device",
+]  # fmt: skip
 
 
 def resolve_device(device) -> torch.device:
@@ -71,6 +75,63 @@ def corpus_fits(nbytes: int, device: torch.device) -> bool:
         return True
     free, _ = torch.cuda.mem_get_info(device)
     return nbytes <= free // 2
+
+
+@dataclasses.dataclass(frozen=True)
+class AdvanceSettings:
+    """What every pair advance of a run shares: the walk key, the task's
+    scalars and the kernel's static settings."""
+
+    key: Tuple[int, int]  # jax.random.PRNGKey(seed)'s raw halves
+    length: int
+    decay: float
+    p: float
+    q: float
+    order: int
+    k_max: int
+    n_iters: int  # depth of the membership search, from the largest block
+    has_alias: bool
+
+    @classmethod
+    def of(cls, bg, task: WalkTask, *, k_max: int, seed: Optional[int] = None) -> "AdvanceSettings":
+        model = task.model
+        if not isinstance(model, Node2vec) or model.p == model.q == 1.0:
+            k_max = 1  # first order, or an acceptance probability of exactly 1
+        return cls(
+            # counter-based RNG: one fixed base key; draws are keyed per
+            # (walk id, hop), never per call
+            key=rng.key_halves(task.seed if seed is None else seed),
+            length=int(task.length),
+            decay=float(task.decay),
+            p=float(getattr(model, "p", 1.0)),
+            q=float(getattr(model, "q", 1.0)),
+            order=model.order,
+            k_max=k_max,
+            n_iters=int(np.ceil(np.log2(max(bg.max_block_edges, 2)))) + 2,
+            has_alias=bool(bg.has_weights),
+        )
+
+    def advance(self, pair_args, lanes, *, v_iters: int, record: bool = False, corpus=None):
+        """One pair advance of ``lanes`` (wid, prev, cur, hop, alive) on the
+        pair's arrays: the kernel for CUDA tensors, the plain version for
+        CPU tensors."""
+        return _pair_advance.fused_advance_pair(
+            *pair_args,
+            *lanes,
+            self.key,
+            self.length,
+            self.decay,
+            self.p,
+            self.q,
+            order=self.order,
+            k_max=self.k_max,
+            n_iters=self.n_iters,
+            v_iters=v_iters,
+            record=record,
+            has_alias=self.has_alias,
+            max_len=self.length,
+            corpus=corpus,
+        )
 
 
 @dataclasses.dataclass
@@ -266,7 +327,6 @@ class EngineBase:
         async_pipeline: bool = False,
         writer_queue: int = 64,
         pool_shards: int = 1,
-        advance_impl: str = "cuda",
         device: Union[str, torch.device] = "cuda",
         stats: Optional[IOStats] = None,
         block_store: Optional[BlockStore] = None,
@@ -292,30 +352,16 @@ class EngineBase:
                 )
             self.on_retire = on_retire
             self.record_walks = record_walks
-            self.k_max = k_max if isinstance(task.model, Node2vec) else 1
-            if isinstance(task.model, Node2vec) and task.model.p == task.model.q == 1.0:
-                self.k_max = 1  # acceptance prob is exactly 1 — no rejection needed
             self.pool_flush_walks = pool_flush_walks
             self.seed = task.seed if seed is None else seed
-            self.order = task.model.order
             # backend-neutral surface: works for the in-RAM BlockedGraph and the
             # file-backed repro.io.DiskBlockedGraph alike
-            self.has_alias = bg.has_weights
-            if self.has_alias:
+            self.settings = AdvanceSettings.of(bg, task, k_max=k_max, seed=self.seed)
+            self.order = self.settings.order
+            if self.settings.has_alias:
                 bg.ensure_alias()
-            self.n_iters = int(np.ceil(np.log2(max(bg.max_block_edges, 2)))) + 2
-            # the advance: "cuda" (the fused multi-hop kernel,
-            # repro_torch.kernels.pair_advance, whose wrapper takes the plain
-            # version for CPU tensors) or "torch" (the plain version itself) —
-            # both draw through the same threefry, so their walks are identical
-            if advance_impl not in ("cuda", "torch"):
-                raise ValueError(f"advance_impl must be 'cuda' or 'torch', got {advance_impl!r}")
-            self.advance_impl = advance_impl
             self.device = resolve_device(device)
             self.advance_calls = 0
-            # counter-based RNG: one fixed base key (jax.random.PRNGKey(seed)'s
-            # raw halves); draws are keyed per (walk id, hop), never per call
-            self._base_key = rng.key_halves(self.seed)
             V = bg.num_vertices
             self.endpoint_counts = np.zeros(V, np.int64)
             if initial_walks is None:
@@ -396,7 +442,7 @@ class EngineBase:
                 self.blocks.pin(hot_blocks)
             self._pending_init_src = src
             self.unfinished = self.num_walks
-            self.pair = ResidentPair(bg, self.has_alias, self.stats, self.device)
+            self.pair = ResidentPair(bg, self.settings.has_alias, self.stats, self.device)
             self._closed = False
 
     # -- pool plumbing ("disk" walk I/O) --------------------------------------
@@ -456,33 +502,14 @@ class EngineBase:
                 alive_host = np.zeros(N, bool)
                 alive_host[:n] = True if alive is None else alive
                 lanes_dev = torch.as_tensor(lanes, device=self.device)
-                wid_dev, prev, cur, hop = lanes_dev.unbind(0)
                 alive_dev = torch.as_tensor(alive_host, device=self.device)
                 pair_args, v_iters = self.pair.device_args()
             t0 = time.perf_counter_ns()
-            if self.advance_impl == "cuda":
-                advance = _pair_advance.fused_advance_pair
-            else:
-                advance = pair_advance_ref
-            out = advance(
-                *pair_args,
-                wid_dev,
-                prev,
-                cur,
-                hop,
-                alive_dev,
-                self._base_key,
-                int(self.task.length),
-                float(self.task.decay),
-                float(getattr(self.task.model, "p", 1.0)),
-                float(getattr(self.task.model, "q", 1.0)),
-                order=self.order,
-                k_max=self.k_max,
-                n_iters=self.n_iters,
+            out = self.settings.advance(
+                pair_args,
+                (*lanes_dev.unbind(0), alive_dev),
                 v_iters=v_iters,
                 record=self.record_walks,
-                has_alias=self.has_alias,
-                max_len=int(self.task.length),
                 corpus=self.device_corpus,
             )
             # the device-to-host copies synchronise, so exec_time covers the

@@ -1,7 +1,7 @@
 """The pair advance shared by the engines, as plain PyTorch.
 
-Vectorised Alg. 2 ``UpdateWalk`` over a *view pair* — the port of
-``repro/engines/step.py::pair_advance_impl``.  :func:`pair_advance_ref` is
+Vectorised Alg. 2 ``UpdateWalk`` over a *view pair* — the port of the
+jitted pair advance of ``repro/engines/step.py``.  :func:`pair_advance_ref` is
 the plain version of the hand-written CUDA kernel in
 :mod:`repro_torch.kernels.pair_advance`: the CPU path of the kernel's
 wrapper, and what the kernel is held against on the card.

@@ -4,7 +4,7 @@
         --queries 96 --samples 32 --max-batch 32 [--hot-blocks 2] \\
         [--skew 0.85] [--p 4 --q 0.25] [--length 20] [--decay 0.85] \\
         [--pool disk] [--graph-backend disk --graph-dir DIR] \\
-        [--no-async-pipeline] [--advance cuda|torch] [--device cuda|cpu] [--seed 0]
+        [--no-async-pipeline] [--device cuda|cpu] [--seed 0]
 
 The flags and CSV of ``python -m repro.launch.serve``: builds a
 Barabási–Albert graph, submits ``--queries`` point queries whose sources
@@ -12,9 +12,9 @@ concentrate on the hottest block with probability ``--skew`` (uniform
 otherwise), serves them through :class:`repro_torch.serve.WalkQueryServer`
 in admission batches of ``--max-batch``, and prints the per-query latency
 percentiles plus the hot-set pinning ledger.  ``--hot-blocks 0`` is the
-pure-LRU reference.  ``--advance`` picks the hand-written CUDA kernel or its
-plain PyTorch version, ``--device`` the device (``cuda`` by default; there
-is no fallback to the CPU).
+pure-LRU reference.  ``--device`` picks the device: ``cuda`` (the default;
+there is no fallback to the CPU) runs the hand-written CUDA kernel, ``cpu``
+its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -77,13 +77,6 @@ def parse_args(argv=None):
         help="serve each batch in the serial reference mode",
     )
     ap.add_argument(
-        "--advance",
-        default="cuda",
-        choices=("cuda", "torch"),
-        help="UpdateWalk implementation: the hand-written CUDA kernel or its "
-        "plain PyTorch version — answers are bit-identical either way",
-    )
-    ap.add_argument(
         "--device",
         default="cuda",
         choices=("cuda", "cpu"),
@@ -141,7 +134,6 @@ def main(argv=None):
         seed=args.seed,
         pool=args.pool,
         async_pipeline=not args.no_async_pipeline,
-        advance_impl=args.advance,
         device=args.device,
     ) as server:
         for source in sources:

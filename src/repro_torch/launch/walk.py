@@ -4,13 +4,12 @@
         --engine biblock [--engine sogw|sgsc|pb|oracle] [--p 4 --q 0.25] \\
         [--graph-backend disk --graph-dir /path/to/dir] [--pool disk] \\
         [--no-async-pipeline] [--pool-shards 4] \\
-        [--advance cuda|torch] [--device cuda|cpu]
+        [--device cuda|cpu]
 
 The flags, engines and CSV columns of ``python -m repro.launch.walk`` (by
-default the ``biblock`` and ``sogw`` engines), with the advance chosen by
-``--advance`` (the hand-written CUDA kernel or its plain PyTorch version)
-and the device by ``--device`` (``cuda`` by default); both reach every
-engine.
+default the ``biblock`` and ``sogw`` engines), with the device chosen by
+``--device``, which reaches every engine: ``cuda`` (the default) runs the
+hand-written CUDA kernel, ``cpu`` its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -50,14 +49,6 @@ def parse_args(argv=None):
     ap.add_argument("--no-async-pipeline", action="store_true")
     ap.add_argument("--writer-queue", type=int, default=64)
     ap.add_argument("--pool-shards", type=int, default=1)
-    ap.add_argument(
-        "--advance",
-        default="cuda",
-        choices=("cuda", "torch"),
-        help="UpdateWalk implementation: the hand-written CUDA kernel "
-        "(repro_torch.kernels.pair_advance) or its plain PyTorch version — "
-        "walks are bit-identical either way",
-    )
     ap.add_argument(
         "--device",
         default="cuda",
@@ -126,7 +117,7 @@ def main(argv=None) -> list:
             walks_per_vertex=args.walks_per_vertex, length=args.length, seed=args.seed
         )
 
-    device_kw = dict(advance_impl=args.advance, device=args.device)
+    device_kw = dict(device=args.device)
     pool_kw = dict(
         device_kw,
         pool=args.pool,

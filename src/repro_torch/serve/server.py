@@ -3,9 +3,9 @@ triangular sweep.
 
 The port of ``repro/serve/server.py``.  Every admitted batch runs as the
 port's :class:`~repro_torch.engines.biblock.BiBlockEngine` on the server's
-``device`` (``cuda`` unless asked for ``cpu``) with its ``advance_impl``
-(``"cuda"``: the hand-written CUDA pair advance; ``"torch"``: its plain
-version); answers, batch seeds and charges equal the JAX server's.  Life of
+``device`` (``cuda`` unless asked for ``cpu``): the hand-written CUDA pair
+advance on a card, its plain version on the CPU; answers, batch seeds and
+charges equal the JAX server's.  Life of
 a query:
 
 1. **submit** — ``submit(source, config)`` stamps the arrival clock,
@@ -71,14 +71,13 @@ class WalkQueryServer:
     """Admission-batched point-query serving over one blocked graph.
 
     ``engine_kw`` flows to every batch's engine run (``pool``,
-    ``loading``, ``async_pipeline``, ...), and so do ``device`` (resolved
+    ``loading``, ``async_pipeline``, ...), and so does ``device`` (resolved
     once here: a server asked for ``cuda`` on a host without one raises at
-    construction) and ``advance_impl``; the block store and stats are
-    server-owned and shared across runs, so hot-set pinning savings
-    compound over the server's lifetime.  ``hot_blocks=0`` disables pinning
+    construction); the block store and stats are server-owned and shared
+    across runs, so hot-set pinning savings compound over the server's
+    lifetime.  ``hot_blocks=0`` disables pinning
     (the pure-LRU reference).  ``advance_calls`` sums the engine runs'
-    advances: with ``advance_impl="cuda"`` on the card, one kernel launch
-    each.
+    advances: on the card, one kernel launch each.
     """
 
     def __init__(
@@ -94,14 +93,13 @@ class WalkQueryServer:
         seed: int = 0,
         engine_cls=BiBlockEngine,
         device="cuda",
-        advance_impl: str = "cuda",
         **engine_kw,
     ):
         self.bg = bg
         self.seed = seed
         self.engine_cls = engine_cls
         self.device = resolve_device(device)
-        self.engine_kw = dict(engine_kw, device=self.device, advance_impl=advance_impl)
+        self.engine_kw = dict(engine_kw, device=self.device)
         self.stats = IOStats(preset)
         self.blocks = BlockStore(
             bg,

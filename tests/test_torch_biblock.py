@@ -1,8 +1,8 @@
 """The port's bi-block engine walks exactly as the JAX package's does.
 
 Same graph, task and seed through ``repro``'s ``BiBlockEngine``
-(``advance_impl="jax"``) and the port's (``device="cpu"``,
-``advance_impl="torch"``): endpoint counts, corpus, step counts and every
+(``advance_impl="jax"``) and the port's (``device="cpu"``, the plain
+PyTorch advance): endpoint counts, corpus, step counts and every
 deterministic ``IOStats`` charge must be identical across {full, ondemand,
 auto} loading x {ram, disk} graph x {memory, disk} pool, serially and under
 the async pipeline with ``pool_shards`` in {1, 4}, for node2vec (order 2)
@@ -91,7 +91,7 @@ def _pair_of_runs(tmp_path, jbg, tbg, order, backend, **kw):
     out = {}
     for name, bg, task, engine, io, extra in (
         ("jax", jbg, jtask, JBiBlockEngine, jio, dict(advance_impl="jax")),
-        ("torch", tbg, ttask, TBiBlockEngine, tio, dict(advance_impl="torch", device="cpu")),
+        ("torch", tbg, ttask, TBiBlockEngine, tio, dict(device="cpu")),
     ):
         bgx = _open(bg, backend, io, str(tmp_path / f"{name}.grb"))
         pool_dir = str(tmp_path / f"pool_{name}")
@@ -167,7 +167,7 @@ def _kept_and_fresh_runs(monkeypatch, tbg, ttask, **kw):
     monkeypatch.setattr(ResidentPair, "_build", counted)
     runs = {}
     for keep in (2, 0):
-        eng = TBiBlockEngine(tbg, ttask, device="cpu", advance_impl="torch", **kw)
+        eng = TBiBlockEngine(tbg, ttask, device="cpu", **kw)
         assert eng.pair.keep_full == 2
         eng.pair.keep_full = keep
         builds.clear()
@@ -321,48 +321,42 @@ def test_biblock_random_graphs_match_jax(seed, nv, nblocks):
     jbg, tbg = _graphs(seed, nv, nblocks)
     jtask, ttask = _tasks(2, seed)
     a = JBiBlockEngine(jbg, jtask, record_walks=True, async_pipeline=False).run()
-    b = TBiBlockEngine(
-        tbg, ttask, record_walks=True, async_pipeline=False, device="cpu", advance_impl="torch"
-    ).run()
+    b = TBiBlockEngine(tbg, ttask, record_walks=True, async_pipeline=False, device="cpu").run()
     assert _sig(a) == _sig(b)
-
-
-def test_engine_validates_advance_impl():
-    _, tbg = _graphs()
-    _, ttask = _tasks(2)
-    with pytest.raises(ValueError, match="advance_impl"):
-        TBiBlockEngine(tbg, ttask, advance_impl="jax", device="cpu")
 
 
 def test_cuda_impl_on_cpu_tensors_takes_plain_version():
-    """``advance_impl="cuda"`` on CPU tensors runs the wrapper's plain path
-    (no launch) and walks the same as ``"torch"``."""
+    """An engine on CPU tensors runs the kernel wrapper's plain path (no
+    launch) and walks as the JAX engine does."""
     from repro_torch.kernels.pair_advance import fused_advance_pair
 
-    _, tbg = _graphs()
-    _, ttask = _tasks(2)
+    jbg, tbg = _graphs()
+    jtask, ttask = _tasks(2)
     before = fused_advance_pair.launches
-    kw = dict(record_walks=True, async_pipeline=False, device="cpu")
-    a = TBiBlockEngine(tbg, ttask, advance_impl="cuda", **kw).run()
-    b = TBiBlockEngine(tbg, ttask, advance_impl="torch", **kw).run()
+    kw = dict(record_walks=True, async_pipeline=False)
+    a = TBiBlockEngine(tbg, ttask, device="cpu", **kw).run()
     assert fused_advance_pair.launches == before
-    assert _sig(a) == _sig(b)
+    assert _sig(a) == _sig(JBiBlockEngine(jbg, jtask, **kw).run())
 
 
-@pytest.mark.parametrize("engine", ["biblock", "pb", "sogw"])
+@pytest.mark.parametrize("engine", ["biblock", "pb", "sogw", "oracle"])
 def test_device_corpus_matches_host_fallback(monkeypatch, engine):
     """The corpus kept on the engine's device (the CPU here), written by the
     advance and fetched once, equals the host corpus filled from each
     advance's trace, which an engine keeps when the corpus does not fit on
     its device; each run counts the path it took, once."""
     from repro_torch.core import spans
-    from repro_torch.engines import PlainBucketEngine, SOGWEngine
+    from repro_torch.engines import InMemoryWalker, PlainBucketEngine, SOGWEngine
     from repro_torch.engines import base
 
-    cls = {"biblock": TBiBlockEngine, "pb": PlainBucketEngine, "sogw": SOGWEngine}[engine]
     jbg, tbg = _graphs()
     jtask, ttask = _tasks(2)
-    kw = dict(record_walks=True, async_pipeline=False, device="cpu", advance_impl="torch")
+    if engine == "oracle":
+        make = lambda: InMemoryWalker(tbg, ttask, device="cpu").run(record_walks=True)
+    else:
+        cls = {"biblock": TBiBlockEngine, "pb": PlainBucketEngine, "sogw": SOGWEngine}[engine]
+        kw = dict(record_walks=True, async_pipeline=False, device="cpu")
+        make = lambda: cls(tbg, ttask, **kw).run()
     runs = {}
     spans.take()
     spans.enable()
@@ -370,7 +364,7 @@ def test_device_corpus_matches_host_fallback(monkeypatch, engine):
         for path in ("device", "host"):
             if path == "host":
                 monkeypatch.setattr(base, "corpus_fits", lambda nbytes, device: False)
-            res = cls(tbg, ttask, **kw).run()
+            res = make()
             got, counts = spans.take()
             names = {s.name for s in got}
             other = "host" if path == "device" else "device"
@@ -386,7 +380,7 @@ def test_device_corpus_matches_host_fallback(monkeypatch, engine):
     assert a.corpus.shape == (a.num_walks, ttask.length + 1)
     np.testing.assert_array_equal(a.corpus, b.corpus)
     assert _sig(a) == _sig(b)
-    if engine == "biblock":  # and both are the JAX package's corpus
+    if engine in ("biblock", "oracle"):  # and both are the JAX package's corpus
         want = JBiBlockEngine(jbg, jtask, record_walks=True, async_pipeline=False).run()
         np.testing.assert_array_equal(a.corpus, want.corpus)
 
@@ -423,6 +417,6 @@ def _launch(module, *extra):
 
 def test_launcher_csv_matches_jax_launcher():
     want, jheader = _launch("repro.launch.walk")
-    got, theader = _launch("repro_torch.launch.walk", "--device", "cpu", "--advance", "torch")
+    got, theader = _launch("repro_torch.launch.walk", "--device", "cpu")
     assert theader == jheader
     assert got == want

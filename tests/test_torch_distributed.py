@@ -65,8 +65,7 @@ SCENARIOS = {
                                                              samples_per_vertex=2, seed=4)]),
     "pair_deepwalk": dict(_SMALL, mesh=[1, 2], engine=dict(capacity_factor=0.5),
                           task=["deepwalk", dict(walks_per_vertex=1, length=8, seed=3)]),
-    "pair_weighted": dict(_SMALL, mesh=[1, 2], weighted=True,
-                          engine=dict(advance_impl="torch")),  # fmt: skip
+    "pair_weighted": dict(_SMALL, mesh=[1, 2], weighted=True),
     # tests/test_distributed.py's subprocess configuration: (2, 4), 4 blocks
     "mesh_rwnv": dict(_MESH),
     "mesh_prnv": dict(_MESH, task=["prnv", dict(query_vertex=5, samples_per_vertex=1, seed=2)]),
@@ -116,7 +115,7 @@ for name, sc in scenarios.items():
     bg, task = build("repro", sc)
     shape = sc["mesh"]
     mesh = Mesh(np.array(jax.devices()[: shape[0] * shape[1]]).reshape(shape), ("data", "model"))
-    kw = {k: v for k, v in sc.get("engine", {}).items() if k != "advance_impl"}
+    kw = dict(sc.get("engine", {}))
     pool_dir = os.path.join(out, name + "_pool")
     if kw.get("pool") == "disk":
         kw["pool_dir"] = pool_dir
@@ -352,8 +351,8 @@ def world1(tmp_path):
 
 
 def test_constructor_checks(world1):
-    """The JAX engine's block-count check, the mesh's axis names, the
-    advance's name, and no silent CPU fallback: the default device raises
+    """The JAX engine's block-count check, the mesh's axis names, and no
+    silent CPU fallback: the default device raises
     on a host without a card."""
     from repro_torch.core import erdos_renyi, partition_into_n_blocks, rwnv_task
     from repro_torch.core.distributed import DistributedWalkEngine
@@ -365,8 +364,6 @@ def test_constructor_checks(world1):
     bg = partition_into_n_blocks(g, 1)
     with pytest.raises(ValueError, match="no axes"):
         DistributedWalkEngine(bg, task, world1, block_axis="blocks", device="cpu")
-    with pytest.raises(ValueError, match="advance_impl"):
-        DistributedWalkEngine(bg, task, world1, device="cpu", advance_impl="jax")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             DistributedWalkEngine(bg, task, world1)

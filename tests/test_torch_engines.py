@@ -95,10 +95,7 @@ def _sig(res):
 def _both(tmp_path, engine, kind, weighted=False, **kw):
     jbg, tbg = _graphs(weighted)
     want = _run(jcore, jio, jbg, _task(jcore, kind), engine, tmp_path, "jax", **kw)
-    got = _run(
-        tcore, tio, tbg, _task(tcore, kind), engine, tmp_path, "torch", device="cpu",
-        advance_impl="torch", **kw,
-    )  # fmt: skip
+    got = _run(tcore, tio, tbg, _task(tcore, kind), engine, tmp_path, "torch", device="cpu", **kw)
     return want, got, tbg
 
 
@@ -154,23 +151,18 @@ def test_oracle_rejects_disk_graph_and_bad_impl(tmp_path):
             tcore.InMemoryWalker(dbg, task, device="cpu")
     finally:
         dbg.close()
-    with pytest.raises(ValueError, match="advance_impl"):
-        tcore.InMemoryWalker(tbg, task, advance_impl="jax", device="cpu")
 
 
 @pytest.mark.parametrize("engine", ENGINES)
 def test_cuda_impl_on_cpu_tensors_takes_plain_version(tmp_path, engine):
-    """``advance_impl="cuda"`` on CPU tensors runs the wrapper's plain path
-    (no launch) and walks the same as ``"torch"``."""
+    """An engine on CPU tensors runs the kernel wrapper's plain path (no
+    launch) and walks as the JAX engine does."""
     from repro_torch.kernels.pair_advance import fused_advance_pair
 
-    _, tbg = _graphs()
-    task = _task(tcore, "rwnv")
     before = fused_advance_pair.launches
-    a = _run(tcore, tio, tbg, task, engine, tmp_path, "a", device="cpu", advance_impl="cuda")
-    b = _run(tcore, tio, tbg, task, engine, tmp_path, "b", device="cpu", advance_impl="torch")
+    want, got, _ = _both(tmp_path, engine, "rwnv")
     assert fused_advance_pair.launches == before
-    assert _sig(a) == _sig(b)
+    assert _sig(got) == _sig(want)
 
 
 def test_default_device_raises_without_gpu():

@@ -10,7 +10,7 @@
   JAX package's names, but for the documented differences; ``train``,
   ``optim``, ``data``, ``checkpoint``, ``runtime`` and ``core.distributed``
   take the JAX package's parameters (``core.distributed`` adds only the
-  port's ``device`` and ``advance_impl`` keywords), the ``sharding``
+  port's ``device`` keyword), the ``sharding``
   modules too, and ``launch.mesh`` but for its added ``device_type``;
   ``models.moe``,
   ``models.mla``, ``models.ssm``, ``models.rglru`` and ``models.encdec``
@@ -328,8 +328,8 @@ def test_recurrent_and_encdec_signatures_match_jax_but_for_the_generator():
 def test_distributed_signatures_match_jax_but_for_device_and_advance():
     """``DistributedWalkEngine`` takes the JAX engine's parameters (a
     ``DeviceMesh`` where the JAX one takes a ``jax.sharding.Mesh``: the
-    same name, kind and default) and adds only the port's ``device`` and
-    ``advance_impl`` keywords, last; ``ring_owner_and_round`` is the same."""
+    same name, kind and default) and adds only the port's ``device``
+    keyword, last; ``ring_owner_and_round`` is the same."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
     out = subprocess.run(
         [sys.executable, "-c", _SIGNATURES_PROBE, "core.distributed"],
@@ -343,9 +343,7 @@ def test_distributed_signatures_match_jax_but_for_device_and_advance():
     assert port_params == jax_params
     jax_params, port_params = res["DistributedWalkEngine"]
     assert [p[0] for p in jax_params][:3] == ["bg", "task", "mesh"]
-    assert port_params == jax_params + [
-        ["device", "KEYWORD_ONLY", "'cuda'"], ["advance_impl", "KEYWORD_ONLY", "'cuda'"],
-    ]  # fmt: skip
+    assert port_params == jax_params + [["device", "KEYWORD_ONLY", "'cuda'"]]
 
 
 def test_sharding_and_mesh_signatures_match_jax_but_for_the_device_type():
@@ -412,15 +410,15 @@ def _kw(name, default=_CUDA):
 #: the JAX parameters: ``drop`` names, ``default`` {name: the port's},
 #: ``rename`` {JAX's: the port's}, ``after`` {name: parameters inserted after
 #: it}, ``append`` parameters; each package also lists the names only one
-#: side exports.  The port's ``device`` (it runs on the card unless asked)
-#: and ``advance_impl``, the Pallas knobs it drops (``interpret``,
-#: ``walk_tile``, ``advance_interpret``), a ``torch.Generator`` ``gen`` for a
+#: side exports.  The port's ``device`` (it runs on the card unless asked;
+#: the device picks the advance, so the JAX engines' ``advance_impl`` goes),
+#: the Pallas knobs it drops (``interpret``, ``walk_tile``,
+#: ``advance_interpret``), a ``torch.Generator`` ``gen`` for a
 #: PRNG ``key``, the launchers' ``argv``, ``device_type`` for the meshes the
 #: dry run builds, and its artifact's keyword, ``save_comms`` for ``save_hlo``;
 #: the pair advance's ``corpus``, an engine's walks that it records into
-_ENGINE = {"default": {"advance_impl": _CUDA}, "drop": ["advance_interpret"],
-           "after": {"advance_impl": [_kw("device")]}}  # fmt: skip
-_WALKER = {"append": [_kw("advance_impl"), _kw("device")]}
+_ENGINE = {"drop": ["advance_impl", "advance_interpret"], "after": {"pool_shards": [_kw("device")]}}
+_WALKER = {"append": [_kw("device")]}
 _RESULT = {"append": [["advance_calls", "POSITIONAL_OR_KEYWORD", "0"]]}
 _GEN = {"rename": {"key": "gen"}}
 _ARGV = {"append": [["argv", "POSITIONAL_OR_KEYWORD", "None"]]}
@@ -439,7 +437,7 @@ _PINNED = {
                  "bucket_hist_ref": {"append": [_kw("tile", "1024")]}}),
     "kernels.rng": (set(), {"bits_to_unit"}, {"key_halves": {"rename": {"key": "seed"}}}),
     "serve": (set(), set(), {"WalkQueryServer": {
-        "after": {"engine_cls": [_kw("device"), _kw("advance_impl")]}}}),
+        "after": {"engine_cls": [_kw("device")]}}}),
     "models.common": (set(), set(), {"ModelConfig": {"default": {"dtype": "torch.bfloat16"}},
                                      "dense_init": _GEN, "mlp_init": _GEN}),
     "models.attention": (set(), set(), {"attn_init": _GEN}),

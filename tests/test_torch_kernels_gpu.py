@@ -247,11 +247,13 @@ def test_engine_kernel_matches_plain_version(cuda):
 
     bg = partition_into_n_blocks(erdos_renyi(2000, 16000, seed=2), 3)
     task = rwnv_task(p=4.0, q=0.25, walks_per_vertex=1, length=8, seed=2)
-    kw = dict(record_walks=True, device=cuda, async_pipeline=False)
+    kw = dict(record_walks=True, async_pipeline=False)
     before = kernel.fused_advance_pair.launches
-    a = BiBlockEngine(bg, task, advance_impl="cuda", **kw).run()
+    a = BiBlockEngine(bg, task, device=cuda, **kw).run()
     assert kernel.fused_advance_pair.launches - before == a.advance_calls > 0
-    b = BiBlockEngine(bg, task, advance_impl="torch", **kw).run()
+    before = kernel.fused_advance_pair.launches
+    b = BiBlockEngine(bg, task, device="cpu", **kw).run()
+    assert kernel.fused_advance_pair.launches == before
     np.testing.assert_array_equal(a.endpoint_counts, b.endpoint_counts)
     np.testing.assert_array_equal(a.corpus, b.corpus)
     assert a.steps_sampled == b.steps_sampled
@@ -372,7 +374,7 @@ def test_engine_device_corpus_matches_cpu(cuda, monkeypatch):
     bg = partition_into_n_blocks(erdos_renyi(2000, 16000, seed=2), 3)
     task = rwnv_task(p=4.0, q=0.25, walks_per_vertex=2, length=8, seed=2)
     kw = dict(record_walks=True, async_pipeline=False)
-    cpu = BiBlockEngine(bg, task, device="cpu", advance_impl="torch", **kw).run()
+    cpu = BiBlockEngine(bg, task, device="cpu", **kw).run()
     spans.take()
     spans.enable()
     try:
@@ -442,7 +444,7 @@ def test_engine_ondemand_on_card_matches_cpu(cuda, weighted):
     bg = BlockedGraph(g, starts, build_alias=weighted)
     task = rwnv_task(p=4.0, q=0.25, walks_per_vertex=2, length=10, seed=6)
     kw = dict(loading="ondemand", record_walks=True, async_pipeline=False)
-    cpu = BiBlockEngine(bg, task, device="cpu", advance_impl="torch", **kw).run()
+    cpu = BiBlockEngine(bg, task, device="cpu", **kw).run()
     card = BiBlockEngine(bg, task, device=cuda, **kw).run()
     assert card.advance_calls == cpu.advance_calls > 8
     assert card.stats.ondemand_ios == cpu.stats.ondemand_ios > 0
@@ -634,8 +636,8 @@ def test_other_engines_kernel_match_plain_version(cuda, engine):
     bg = partition_into_n_blocks(erdos_renyi(2000, 16000, seed=2), 3)
     task = rwnv_task(p=4.0, q=0.25, walks_per_vertex=1, length=8, seed=2)
     runs = {}
-    for impl in ("cuda", "torch"):
-        kw = dict(advance_impl=impl, device=cuda)
+    for dev in (cuda, "cpu"):
+        kw = dict(device=dev)
         before = kernel.fused_advance_pair.launches
         if engine == "oracle":
             res = InMemoryWalker(bg, task, **kw).run()
@@ -644,9 +646,9 @@ def test_other_engines_kernel_match_plain_version(cuda, engine):
         else:
             res = SOGWEngine(bg, task, static_cache=engine == "sgsc", record_walks=True, **kw).run()
         launched = kernel.fused_advance_pair.launches - before
-        assert launched == (res.advance_calls if impl == "cuda" else 0)
-        runs[impl] = res
-    a, b = runs["cuda"], runs["torch"]
+        assert launched == (res.advance_calls if dev == cuda else 0)
+        runs[dev] = res
+    a, b = runs[cuda], runs["cpu"]
     np.testing.assert_array_equal(a.endpoint_counts, b.endpoint_counts)
     np.testing.assert_array_equal(a.corpus, b.corpus)
     assert a.steps_sampled == b.steps_sampled
@@ -661,8 +663,8 @@ def test_other_engines_kernel_match_plain_version(cuda, engine):
 
 @pytest.mark.gpu
 def test_server_kernel_matches_plain_version(cuda):
-    """A small server on the card, kernel against plain version: the same
-    answers and charges, and one launch per advance."""
+    """A small server on the card against the same server on the CPU: the
+    same answers and charges, and one launch per advance on the card."""
     from repro_torch.core import barabasi_albert, partition_into_n_blocks
     from repro_torch.serve import QueryConfig, WalkQueryServer
 
@@ -672,18 +674,17 @@ def test_server_kernel_matches_plain_version(cuda):
     sources = np.where(r.random(48) < 0.85, r.integers(0, hot, 48), r.integers(0, 2000, 48))
     cfg = QueryConfig(p=4.0, q=0.25, length=10, samples=16)
     runs = {}
-    for impl in ("cuda", "torch"):
+    for dev in (cuda, "cpu"):
         before = kernel.fused_advance_pair.launches
-        with WalkQueryServer(bg, max_batch=16, hot_blocks=2, seed=5, device=cuda,
-                             advance_impl=impl) as server:  # fmt: skip
+        with WalkQueryServer(bg, max_batch=16, hot_blocks=2, seed=5, device=dev) as server:
             for s in sources:
                 server.submit(int(s), cfg)
             answers = server.flush()
         launched = kernel.fused_advance_pair.launches - before
-        assert launched == (server.advance_calls if impl == "cuda" else 0)
+        assert launched == (server.advance_calls if dev == cuda else 0)
         assert server.advance_calls > 0 and server.batches_served == 3
-        runs[impl] = (answers, server.stats.as_dict())
-    (ac, sc), (at, st) = runs["cuda"], runs["torch"]
+        runs[dev] = (answers, server.stats.as_dict())
+    (ac, sc), (at, st) = runs[cuda], runs["cpu"]
     for a, b in zip(ac, at):
         assert a.qid == b.qid and a.source == b.source
         np.testing.assert_array_equal(a.vertices, b.vertices)

@@ -1,6 +1,6 @@
 """The port's walk launcher prints the JAX launcher's CSV for every engine.
 
-``python -m repro_torch.launch.walk`` (``--device cpu --advance torch``)
+``python -m repro_torch.launch.walk`` (``--device cpu``)
 against ``python -m repro.launch.walk`` with the same flags: the same
 header byte for byte, the same engines in the same order (``biblock`` and
 ``sogw`` when no ``--engine`` is given), and the same deterministic
@@ -61,7 +61,7 @@ def _launch(module, *extra):
     return header, [(r[0], {k: r[cols.index(k)] for k in DETERMINISTIC}) for r in rows]
 
 
-PORT = ("--device", "cpu", "--advance", "torch")
+PORT = ("--device", "cpu")
 ALL = ("--engine", "biblock", "--engine", "pb", "--engine", "sogw", "--engine", "sgsc",
        "--engine", "oracle")  # fmt: skip
 
@@ -223,8 +223,7 @@ def test_quickstart_twin_matches_jax_example():
     measured advance time) and the speedup taken from them."""
     small = ["--vertices", "400", "--blocks", "4", "--length", "6"]
     want = _run(["examples/quickstart.py", *small], port=False, timeout=600)
-    got = _run(["examples/torch_port/quickstart.py", *small, "--device", "cpu",
-                "--advance", "torch"])  # fmt: skip
+    got = _run(["examples/torch_port/quickstart.py", *small, "--device", "cpu"])
     clock = (r"sim wall time : .*", r"GraSorw speedup: [0-9.]+x")
     assert len(got) == 23 and _strip(got, *clock) == _strip(want, *clock)
     assert any("top-8 vertices: [(" in line for line in got)

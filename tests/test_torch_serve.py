@@ -4,7 +4,7 @@ The fixture of ``tests/test_serve.py`` (``barabasi_albert(400, 5, seed=3)``
 in 5 blocks), built by ``repro`` and carried over with
 ``blocked_graph_from_arrays``; a skewed mix of queries under two configs
 goes through ``repro.serve.WalkQueryServer`` and the port's
-(``device="cpu"``, ``advance_impl="torch"``) for the hot-set and the
+(``device="cpu"``, the plain PyTorch advance) for the hot-set and the
 pure-LRU policy, the serial and the async pipeline, and the memory and disk
 walk pools: answers (qid, source, walk count, endpoint vertices and
 counts), batch counts, batch seeds and every ``IOStats`` charge but the
@@ -39,7 +39,7 @@ from repro_torch.io import BlockStore  # noqa: E402
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
-PORT = dict(device="cpu", advance_impl="torch")
+PORT = dict(device="cpu")
 #: ``IOStats.as_dict`` fields read off the wall clock or thread timing
 TIMING = {"exec_time", "sim_wall_time", "writer_queue_peak"}
 CFG_A = dict(p=1.0, q=2.0, length=6, decay=0.85, samples=8)
@@ -287,8 +287,6 @@ def test_default_device_raises_at_construction_without_gpu(graphs, no_cuda):
     _, bg = graphs
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserve.WalkQueryServer(bg)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        tserve.WalkQueryServer(bg, device="cuda", advance_impl="torch")
     from repro_torch.launch import serve
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -326,7 +324,7 @@ def _csv(out):
 def test_launcher_csv_matches_jax_launcher(backend):
     jheader, want = _csv(_run(["-m", "repro.launch.serve", *LAUNCH, *backend]))
     theader, got = _csv(_run(["-m", "repro_torch.launch.serve", *LAUNCH, *backend,
-                              "--device", "cpu", "--advance", "torch"]))  # fmt: skip
+                              "--device", "cpu"]))  # fmt: skip
     assert theader == jheader
     assert got == want
     assert int(got["queries"]) == 40 and int(got["batches"]) == 3
@@ -337,7 +335,7 @@ def test_launcher_main_returns_answers_and_server(capsys):
 
     answers, server = serve.main(
         ["--vertices", "300", "--blocks", "3", "--queries", "10", "--max-batch", "4",
-         "--samples", "4", "--length", "5", "--device", "cpu", "--advance", "torch"]
+         "--samples", "4", "--length", "5", "--device", "cpu"]
     )  # fmt: skip
     assert [a.qid for a in answers] == list(range(10))
     assert server.batches_served == 3 and server.advance_calls > 0
@@ -355,6 +353,6 @@ def test_example_twin_matches_jax_example():
     tiny = ["--vertices", "300", "--blocks", "4", "--samples", "16", "--length", "6"]
     want = _example_lines(_run(["examples/pagerank_query.py", *tiny], timeout=600))
     got = _example_lines(_run(["examples/torch_port/pagerank_query.py", *tiny,
-                               "--device", "cpu", "--advance", "torch"], timeout=600))  # fmt: skip
+                               "--device", "cpu"], timeout=600))  # fmt: skip
     assert len([line for line in want if "top5=" in line]) == 9
     assert got == want

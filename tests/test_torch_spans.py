@@ -205,7 +205,6 @@ def _engine_run(tmp_path, order, tag):
             pool="disk",
             pool_flush_walks=16,
             pool_dir=str(tmp_path / f"pool_{tag}"),
-            advance_impl="torch",
             device="cpu",
         ).run()
     finally:
