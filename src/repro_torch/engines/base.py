@@ -17,8 +17,9 @@ Every out-of-core engine owns
   graph block *views*; engines load *exclusively* through it;
 * with ``record_walks``, the corpus ``[num_walks, length + 1]`` on the
   engine's device, written by the advance and copied back once by
-  ``result()`` (on the host, filled from each advance's trace, when it
-  does not fit the card);
+  ``result()``, from a card through a reused page-locked ring
+  (:func:`fetch_corpus`) (on the host, filled from each advance's trace,
+  when it does not fit the card);
 * a :class:`ResidentPair` — the two resident slots as packed device arrays
   (the "memory" tier of the paper).  Each slot holds a
   :class:`~repro.core.graph.BlockView` — a full block or a compacted
@@ -29,6 +30,7 @@ Every out-of-core engine owns
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from collections import OrderedDict
 from typing import Callable, Optional, Tuple, Union
@@ -49,7 +51,8 @@ from repro_torch.kernels import rng
 from .step import VID_PAD, pow2_pad, remap_search_iters
 
 __all__ = [
-    "AdvanceSettings", "WalkResult", "EngineBase", "ResidentPair", "corpus_fits", "resolve_device",
+    "AdvanceSettings", "WalkResult", "EngineBase", "ResidentPair", "corpus_fits", "fetch_corpus",
+    "resolve_device",
 ]  # fmt: skip
 
 
@@ -75,6 +78,74 @@ def corpus_fits(nbytes: int, device: torch.device) -> bool:
         return True
     free, _ = torch.cuda.mem_get_info(device)
     return nbytes <= free // 2
+
+
+#: bytes a chunk of the corpus fetch, and the ring's depth: the staging
+#: buffers every fetch from one device reuses, made once for the process
+FETCH_CHUNK_BYTES = 32 << 20
+FETCH_RING = 2
+_fetch_rings: dict = {}
+_fetch_lock = threading.Lock()
+
+
+def _fetch_ring(device: torch.device) -> list:
+    """The staging ring of ``device``: ``FETCH_RING`` buffers of
+    ``FETCH_CHUNK_BYTES``, page-locked for a card, plain host memory for the
+    CPU; made again only when the chunk size or the depth changes."""
+    ring = _fetch_rings.get(device)
+    if ring is None or len(ring) != FETCH_RING or ring[0].numel() != FETCH_CHUNK_BYTES:
+        pin = device.type == "cuda"
+        ring = [
+            torch.empty(FETCH_CHUNK_BYTES, dtype=torch.uint8, pin_memory=pin)
+            for _ in range(FETCH_RING)
+        ]
+        _fetch_rings[device] = ring
+    return ring
+
+
+def fetch_corpus(src: torch.Tensor) -> np.ndarray:
+    """A host copy of the contiguous ``src`` in fresh memory that the caller
+    owns, chunk by chunk through the staging ring of its device.  From a
+    card, chunk ``k`` is copied into its page-locked buffer on a side stream
+    while torch's intra-op threads copy chunk ``k - FETCH_RING + 1`` out of
+    its own.  A single copy into fresh pageable memory spends most of its
+    time touching the new pages one by one on one thread; here every core
+    touches its share, and no page is locked per fetch."""
+    dest = torch.empty(src.shape, dtype=src.dtype)
+    out = dest.view(-1).view(torch.uint8)
+    flat = src.reshape(-1).view(torch.uint8)
+    nbytes, chunk = out.numel(), FETCH_CHUNK_BYTES
+    n = -(-nbytes // chunk)
+    spans.count("corpus.fetch.chunks", n)
+    cuda = src.device.type == "cuda"
+    with _fetch_lock:
+        ring = _fetch_ring(src.device)
+        depth = len(ring)
+        done = [None] * depth
+        if cuda:
+            stream = torch.cuda.Stream(src.device)
+            stream.wait_stream(torch.cuda.current_stream(src.device))
+        for k in range(n + depth - 1):
+            # chunk k takes the buffer that chunk k - depth was copied out of
+            if k < n:
+                lo, hi = k * chunk, min((k + 1) * chunk, nbytes)
+                buf = ring[k % depth][: hi - lo]
+                if cuda:
+                    with torch.cuda.stream(stream):
+                        buf.copy_(flat[lo:hi], non_blocking=True)
+                    done[k % depth] = stream.record_event()
+                else:
+                    buf.copy_(flat[lo:hi])
+            j = k - depth + 1
+            if j >= 0:
+                lo, hi = j * chunk, min((j + 1) * chunk, nbytes)
+                if cuda:
+                    done[j % depth].synchronize()
+                out[lo:hi].copy_(ring[j % depth][: hi - lo])
+    # a frame outlives its call when a stack sampler holds it; the source
+    # must not live on in it
+    del src, flat
+    return dest.numpy()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -589,11 +660,14 @@ class EngineBase:
         corpus = self.corpus
         if self.device_corpus is not None:
             # one copy to the host, into memory the caller owns (none from the
-            # CPU, where the engine hands its tensor over); its time is that of
-            # touching fresh host pages, which a copy through pinned memory
-            # pays as well
+            # CPU, where the engine hands its tensor over); through the
+            # page-locked ring, torch's intra-op threads touch the fresh pages
+            # on every core, where a pageable copy touches them on one thread
             with spans.span("corpus.fetch"):
-                corpus = self.device_corpus.cpu().numpy()
+                if self.device.type == "cpu":
+                    corpus = self.device_corpus.numpy()
+                else:
+                    corpus = fetch_corpus(self.device_corpus)
             self.device_corpus = None
         res = WalkResult(
             num_walks=self.num_walks,

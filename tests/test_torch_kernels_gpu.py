@@ -367,32 +367,49 @@ def test_wrapper_rejects_a_wrong_corpus(cuda):
 def test_engine_device_corpus_matches_cpu(cuda, monkeypatch):
     """A recording bi-block engine on the card keeps its corpus there and
     gives the corpus of the same engine on the CPU; forced onto the host
-    path, the card's engine gives it too."""
+    path, the card's engine gives it too.  With the fetch's chunk cut to
+    16 KiB, two card engines of different seeds run back to back: each
+    fetch takes ceil(bytes / chunk) chunks through the page-locked ring,
+    each corpus is the CPU engine's, and the second fetch leaves the first
+    corpus as it was."""
     from repro_torch.core import partition_into_n_blocks, rwnv_task, spans
     from repro_torch.engines import base
 
+    chunk = 16 << 10
+    monkeypatch.setattr(base, "FETCH_CHUNK_BYTES", chunk)
     bg = partition_into_n_blocks(erdos_renyi(2000, 16000, seed=2), 3)
-    task = rwnv_task(p=4.0, q=0.25, walks_per_vertex=2, length=8, seed=2)
+    tasks = [rwnv_task(p=4.0, q=0.25, walks_per_vertex=2, length=8, seed=s) for s in (2, 3)]
     kw = dict(record_walks=True, async_pipeline=False)
-    cpu = BiBlockEngine(bg, task, device="cpu", **kw).run()
+    cpu = [BiBlockEngine(bg, t, device="cpu", **kw).run() for t in tasks]
+    assert cpu[0].corpus.tobytes() != cpu[1].corpus.tobytes()
     spans.take()
     spans.enable()
     try:
-        card = BiBlockEngine(bg, task, device=cuda, **kw).run()
-        _, counts = spans.take()
-        assert counts.get("corpus.device") == 1 and "corpus.host" not in counts
+        card = []
+        for t in tasks:
+            card.append(BiBlockEngine(bg, t, device=cuda, **kw).run())
+            _, counts = spans.take()
+            assert counts.get("corpus.device") == 1 and "corpus.host" not in counts
+            nbytes = card[-1].corpus.nbytes
+            assert nbytes > 4 * chunk
+            assert counts["corpus.fetch.chunks"] == -(-nbytes // chunk)
+        ring = base._fetch_rings[torch.device("cuda", torch.cuda.current_device())]
+        assert all(buf.is_pinned() and buf.numel() == chunk for buf in ring)
         monkeypatch.setattr(base, "corpus_fits", lambda nbytes, device: False)
-        host = BiBlockEngine(bg, task, device=cuda, **kw).run()
+        host = BiBlockEngine(bg, tasks[0], device=cuda, **kw).run()
         _, counts = spans.take()
         assert counts.get("corpus.host") == 1 and "corpus.device" not in counts
+        assert "corpus.fetch.chunks" not in counts
     finally:
         spans.disable()
         spans.take()
-    for res in (card, host):
+    for res, want in zip([*card, host], [*cpu, cpu[0]]):
         assert isinstance(res.corpus, np.ndarray) and res.corpus.dtype == np.int32
-        np.testing.assert_array_equal(res.corpus, cpu.corpus)
-        np.testing.assert_array_equal(res.endpoint_counts, cpu.endpoint_counts)
-        assert res.steps_sampled == cpu.steps_sampled
+        assert res.corpus.flags.c_contiguous
+        assert not any(np.shares_memory(res.corpus, buf.numpy()) for buf in ring)
+        np.testing.assert_array_equal(res.corpus, want.corpus)
+        np.testing.assert_array_equal(res.endpoint_counts, want.endpoint_counts)
+        assert res.steps_sampled == want.steps_sampled
 
 
 @pytest.mark.gpu

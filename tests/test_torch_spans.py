@@ -240,13 +240,15 @@ def test_spans_change_nothing_the_run_computes(runs):
 
 
 def test_every_span_nests_inside_the_run(runs):
-    _, on, got, _ = runs
+    _, on, got, counts = runs
     names = {s.name for s in got}
     assert {"engine.init", "task.run", "init", "slot", "pool", "load", "advance"} <= names
-    # the corpus is kept on the engine's device (here the CPU) and fetched once
+    # the corpus is kept on the engine's device (here the CPU) and fetched
+    # once: the CPU hands its tensor over, with no chunk through the ring
     assert {"advance.upload", "advance.exec", "corpus.fetch", "retire", "persist"} <= names
     assert "advance.record" not in names
     assert sum(s.name == "corpus.fetch" for s in got) == 1
+    assert "corpus.fetch.chunks" not in counts
     if on.stats.supersteps and "bucket" in names:
         assert "route" in names
     by_index = {s.index: s for s in got}
